@@ -1,0 +1,27 @@
+"""zeth-tpu on PyTorch: the STARK prove stack for one NVIDIA H100.
+
+A second package beside ``zeth_tpu`` (the JAX reference). It mirrors the
+reference's module names, so each module's counterpart is easy to find:
+
+- ``field``, ``ntt``         Baby Bear + ext4 arithmetic and NTT/LDE on
+                             torch int32 tensors (Montgomery form)
+- ``hash``                   Poseidon2, Merkle trees, the page tree
+- ``kernels``                hand-written CUDA kernels and their build
+- ``zkp``                    DEEP-ALI + FRI prover (device) and verifier
+                             (host numpy)
+- ``circuits``               rv32im, paging and toy AIRs (host copies)
+- ``executor``               the C++ RV32IM emulator and its guests (copy)
+- ``convert``                numpy uint32 <-> int32 tensor conversion
+
+The port imports ``torch`` and never ``jax``, and nothing of the reference
+package: the host code it needs (the C++ executor included) is carried as
+jax-free copies, which the tests hold equal to the reference's.
+
+Field elements are ``torch.int32`` tensors (p = 2013265921 < 2^31) in
+Montgomery form with R = 2^32, so every intermediate array equals the
+reference's uint32 array bit for bit. Products are formed in int64. Every
+device function takes its tensors' device; nothing picks a device
+implicitly.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,105 @@
+"""Hand-written CUDA kernels: build, load and launch counts.
+
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. It is
+compiled by ``nvcc`` for ``sm_90a`` into ``zeth_tpu_torch/build/lib<name>.so``
+at first use (or by ``build_all``, which starts one ``nvcc`` per source at
+once) and loaded with ``ctypes``. Nothing is compiled or loaded when this
+module is imported, so CPU-only machines import the package freely.
+
+``LAUNCHES`` counts, per kernel, the launches its wrapper has made; a
+wrapper adds one where it launches its kernel and nowhere else.
+
+Kernels:
+
+* ``poseidon2_leaf`` -- the Poseidon2 Merkle leaf sponge; wrapper
+  ``zeth_tpu_torch.hash.poseidon2.leaf_hash``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_DIR, "csrc")
+BUILD = os.path.join(os.path.dirname(_DIR), "build")
+
+NAMES = ("poseidon2_leaf",)
+LAUNCHES: dict[str, int] = {name: 0 for name in NAMES}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def reset_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    """nvcc from PATH, else from the toolkit's install prefix."""
+    path = shutil.which("nvcc")
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    if path is None and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        path = os.path.join(home, "bin", "nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit to build")
+    return path
+
+
+def _paths(name: str):
+    return (os.path.join(CSRC, f"{name}.cu"),
+            os.path.join(BUILD, f"lib{name}.so"),
+            os.path.join(BUILD, f"lib{name}.log"))
+
+
+def _stale(name: str) -> bool:
+    src, so, _ = _paths(name)
+    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src)
+
+
+def build_all(names=NAMES, force: bool = False) -> dict[str, str]:
+    """Compile the kernels (one nvcc process per source, all started
+    together). Returns {name: compiler output}; raises if any build fails."""
+    os.makedirs(BUILD, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in names:
+        if not force and not _stale(name):
+            continue
+        src, so, log = _paths(name)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        procs[name] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, so, log)
+    logs, failed = {}, []
+    for name, (proc, tmp, so, log) in procs.items():
+        out, _ = proc.communicate()
+        with open(log, "w") as f:
+            f.write(out)
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(name)
+            continue
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(
+            f"{n}:\n{logs[n]}" for n in failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's shared library, built first if missing or stale."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        if _stale(name):
+            build_all([name])
+        lib = ctypes.CDLL(_paths(name)[1])
+        _LIBS[name] = lib
+    return lib

@@ -1,0 +1,523 @@
+"""DEEP-ALI STARK prover: the heavy math on a torch device, transcript on host.
+
+Counterpart of the resident single-device path of
+``zeth_tpu.zkp.prover.prove`` (PROTOCOL.md). Stage structure:
+
+  commit control/main/aux groups  (coset LDE + batched Poseidon2 Merkle)
+  -> constraint quotient Q = mix(C_i)/Z on the LDE domain (level tape)
+  -> "check" group = Q split into 4 coefficient slices x 4 ext components
+  -> DEEP taps at z / z*w_n (barycentric, from the stride-4 LDE rows)
+  -> DEEP combination polynomial -> FRI (zeth_tpu_torch.zkp.fri)
+  -> Merkle openings of every group at the FRI query indices.
+
+Every group's LDE stays resident as an int32 tensor (the po2=20 rv32im
+main LDE is ~17 GB, which an 80 GB card holds); int64 temporaries are
+bounded by working on column or row chunks. The reference's mesh path,
+bit-packed upload, coset-streamed main group and MXU kernels have no
+counterpart here. Seals equal the reference's word for word.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import field as F
+from .. import hostmath as H
+from .. import ntt
+from ..hash import merkle
+from ..hostmath import GENERATOR, P, RINV
+from . import fri, tape
+from .air import Air
+from .transcript import Transcript
+
+BLOWUP = fri.BLOWUP
+
+# Tap stream order (PROTOCOL.md step 5): offset 0 = z, offset 1 = z*w_n.
+TAP_STREAMS = [("control", 0), ("main", 0), ("aux", 0), ("check", 0),
+               ("control", 1), ("main", 1), ("aux", 1)]
+
+# int64 temporaries of one LDE / reduction chunk hold about this many
+# elements (each chunk's int64 working set is a few times this in bytes)
+CHUNK_ELEMS = 1 << 28
+
+
+@dataclass
+class GroupOpening:
+    rows: np.ndarray     # (n_queries, cols) standard form LDE rows
+    paths: list          # n_queries sibling paths (depth, 8)
+
+
+@dataclass
+class StarkProof:
+    air_name: str
+    po2: int
+    publics: list
+    roots: dict          # group -> (8,) digest
+    taps: np.ndarray     # (n_taps, 4) standard form, TAP_STREAMS order
+    fri_proof: fri.FriProof
+    openings: dict       # group -> GroupOpening
+    query_indices: list
+
+
+# -- stage timing ---------------------------------------------------------------
+
+TIMING = os.environ.get("ZETH_TIMING", "0") == "1"
+STAGE_LOG: list = []          # (stage name, seconds) while TIMING is on
+
+
+class _Stage:
+    """Context timer. With TIMING on it synchronizes the device at the
+    stage's end and records (name, seconds) in STAGE_LOG."""
+
+    def __init__(self, name, device=None):
+        self.name = name
+        self.device = device
+
+    def __enter__(self):
+        self.t0 = time.time()
+
+    def __exit__(self, *a):
+        if not TIMING:
+            return
+        if self.device is not None and torch.device(self.device).type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.time() - self.t0
+        STAGE_LOG.append((self.name, dt))
+        print(f"[prover] {self.name}: {dt:.2f}s", file=sys.stderr, flush=True)
+
+
+# -- host helpers -----------------------------------------------------------------
+
+
+def _to_dev(a_std, device) -> torch.Tensor:
+    """Standard-form host values -> Montgomery int32 tensor."""
+    return torch.from_numpy(H.to_monty_np(a_std).view(np.int32)).to(device)
+
+
+def _upload_std(a_std: np.ndarray, device) -> torch.Tensor:
+    """(n, c) standard-form host matrix -> standard-form int32 tensor."""
+    a32 = np.ascontiguousarray(np.asarray(a_std, np.uint64).astype(np.uint32))
+    return torch.from_numpy(a32.view(np.int32)).to(device)
+
+
+def _host_std(t: torch.Tensor) -> np.ndarray:
+    """Montgomery int32 tensor -> standard-form numpy uint64."""
+    return H.from_monty_np(t.cpu().numpy().view(np.uint32))
+
+
+def _zinv_std(n: int) -> list:
+    """Standard-form (BLOWUP,) table of 1/(x^n - 1) on the LDE coset
+    (4-periodic); the reference's ``_zinv_table`` in standard form, so the
+    division is one ``mul_std``."""
+    gn = pow(GENERATOR, n, P)
+    w4 = H.rou_fwd(BLOWUP)
+    vals = [(gn * pow(w4, i, P) - 1) % P for i in range(BLOWUP)]
+    return [pow(v, P - 2, P) for v in vals]
+
+
+def scalar_publics(air: Air, publics):
+    """The leading publics that enter constraints as scalars."""
+    n_ps = getattr(air, "n_public_scalars", None)
+    return publics if n_ps is None else publics[:n_ps]
+
+
+def all_challenges(air: Air, publics, sampled: np.ndarray,
+                   derived_extra=None) -> np.ndarray:
+    """Sampled challenges + the AIR's derived challenge-like scalars.
+
+    derived_extra may be a callable taking the sampled challenges (the
+    prover computes companion-bound values like d0/d1 only once the
+    shared challenges exist) or a plain dict (the verifier passes the
+    companion proof's public values)."""
+    if not getattr(air, "n_derived", 0):
+        return sampled
+    if callable(derived_extra):
+        derived_extra = derived_extra(sampled)
+    derived = np.asarray(
+        air.derived_challenges(publics, sampled, extra=derived_extra),
+        np.uint64).reshape(-1, 4)
+    return np.concatenate([sampled.reshape(-1, 4), derived], axis=0)
+
+
+# Air registry + cached constraint tapes: ``air.constraints()`` is captured
+# once per (air, publics count) into a linear tape (zkp/tape.py).
+_AIRS: dict[str, Air] = {}
+_TAPES: dict = {}
+
+
+def register_air(air: Air) -> None:
+    _AIRS[air.name] = air
+
+
+def _tape_program(air_name: str, n_publics: int):
+    key = (air_name, n_publics)
+    tp = _TAPES.get(key)
+    if tp is None:
+        air = _AIRS[air_name]
+        n_chal = air.n_challenges + getattr(air, "n_derived", 0)
+        tp = tape.capture(
+            air, n_publics,
+            lambda cap: [tuple(cap.scalar(("chal", i, c)) for c in range(4))
+                         for i in range(n_chal)])
+        _TAPES[key] = tp
+    return tp
+
+
+# -- LDE --------------------------------------------------------------------------
+
+
+def _lde_group(trace_monty):
+    """(n, c) trace -> (coeffs (n, c), lde (4n, c)) on the coset 31*<w_4n>."""
+    n, c = trace_monty.shape
+    coeffs = ntt.intt(trace_monty)
+    scaled = F.mul_std(coeffs, ntt.power_table(GENERATOR, n,
+                                               trace_monty.device)[:, None])
+    padded = torch.zeros((BLOWUP * n, c), dtype=torch.int32,
+                         device=trace_monty.device)
+    padded[:n] = scaled
+    return coeffs, ntt.ntt(padded)
+
+
+def _lde(dev, std: bool):
+    """Column-chunked LDE of an (n, c) tensor (standard form if `std`,
+    else Montgomery) into a resident (4n, c) Montgomery tensor."""
+    n, c = dev.shape
+    out = torch.empty((BLOWUP * n, c), dtype=torch.int32, device=dev.device)
+    w = max(1, CHUNK_ELEMS // (BLOWUP * n))
+    for off in range(0, c, w):
+        chunk = dev[:, off:off + w]
+        m = F.to_monty(chunk) if std else chunk.contiguous()
+        out[:, off:off + w] = _lde_group(m)[1]
+        del m
+    return out
+
+
+def commit_main(air: Air, main_std: np.ndarray, device="cpu"):
+    """Commit the main group exactly as prove() does; returns
+    (root (8,) np.uint64, handle) where handle can be passed back to
+    prove(main_commit=handle) to reuse the LDE and tree (used to
+    pre-commit a companion proof's trace into another transcript via
+    prove(extra_mix=...) before the shared challenges are sampled)."""
+    lde = _lde(_upload_std(main_std, device), std=True)
+    tree = merkle.commit_rows(lde)
+    return tree.root, (lde, tree)
+
+
+# -- check group -------------------------------------------------------------------
+
+
+def _finish_check(acc, n: int):
+    """acc (4n, 4) alpha-mix -> (n, 16) check columns (evaluations on H)."""
+    dev = acc.device
+    zinv = torch.tensor(_zinv_std(n), dtype=torch.int64, device=dev)
+    q_evals = F.mul_std(acc, zinv.repeat(n)[:, None])          # (4n, 4)
+    qc = ntt.intt(q_evals)                                     # coset iNTT
+    sinv = ntt.power_table(pow(GENERATOR, P - 2, P), BLOWUP * n, dev)
+    qc = F.mul_std(qc, sinv[:, None])
+    # split: 4 slices (k) x 4 ext components -> (n, 16), col = 4k + comp
+    cols = qc.reshape(BLOWUP, n, 4).transpose(0, 1).reshape(n, 16)
+    # Commit the check group as evaluations on H so the interpolating
+    # polynomial of each column is exactly Q_{k,comp} (tap consistency).
+    return ntt.ntt(cols.contiguous())
+
+
+def _check_group(air: Air, ldes: dict, alpha: np.ndarray, publics,
+                 challenges, n: int):
+    """Build the check group: Q = mix(C_i)/Z split into 16 base columns."""
+    register_air(air)
+    pubs_s = scalar_publics(air, publics)
+    tp = _tape_program(air.name, len(pubs_s))
+    # committed columns have degree <= n-1, so a total constraint degree
+    # D gives deg(Q) <= D(n-1) - n <= 4n-1 exactly when D <= BLOWUP+1
+    assert tp.max_degree <= BLOWUP + 1, \
+        f"constraint degree {tp.max_degree} exceeds blowup+1 = {BLOWUP + 1}"
+    alpha_pows = H.ext_powers(alpha, tp.n_stage)
+    dev = next(iter(ldes.values())).device
+    with _Stage(f"  constraint tape ({tp.ops.shape[0]} ops, "
+                f"{tp.n_stage} constraints)", dev):
+        acc = tape.eval_check(tp, ldes, pubs_s, challenges, alpha_pows)
+    return _finish_check(acc, n)
+
+
+# -- DEEP taps and combination --------------------------------------------------
+
+
+def _rows_dot(rows, w):
+    """sum_k rows[4k, c] * w[k, e] (Montgomery) -> (c, e).
+
+    rows: (4n, c) Montgomery LDE; w: (n, e) Montgomery. Products are
+    reduced per term and summed in int64 (exact: the order of the
+    additions does not matter), then scaled by R^-1 once."""
+    c = rows.shape[1]
+    n, e = w.shape
+    chunk = max(1, min(n, CHUNK_ELEMS // 4 // max(c * e, 1)))
+    acc = torch.zeros((c, e), dtype=torch.int64, device=rows.device)
+    for k0 in range(0, n, chunk):
+        k1 = min(n, k0 + chunk)
+        r = rows[BLOWUP * k0:BLOWUP * k1:BLOWUP].to(torch.int64)
+        t = r[:, :, None] * w[k0:k1].to(torch.int64)[:, None, :]
+        acc += torch.fmod(t, P).sum(dim=0)
+        del r, t
+    return torch.fmod(torch.fmod(acc, P) * RINV, P).to(torch.int32)
+
+
+def _point_inverses(x_pows, z_monty):
+    """ext inverse of (x_i - z) for all LDE points. x_pows: (4n,) base."""
+    diff0 = F.sub(x_pows, z_monty[0])
+    rest = F.neg(z_monty[1:]).expand(x_pows.shape[0], 3)
+    return F.ext_inv(torch.cat([diff0[:, None], rest], dim=1))
+
+
+def _taps_fused(groups, z_m, zg_m, n: int):
+    """Every DEEP tap plus the (x - z)^-1 tables.
+
+    groups: (4n, c) Montgomery LDEs. Returns (per-group (c, 8) Montgomery
+    tap values ([:, :4] at z, [:, 4:] at z*w_n), inv_z, inv_zg); the
+    inverse tables are reused by the DEEP combination. On the coset gH of
+    size 4n: f(z) = K(z) * sum_i f(x_i) * x_i / (z - x_i) with
+    K(z) = (z^4n - g^4n) / (4n * g^4n); every committed column has degree
+    < n, so its tap interpolates exactly from the n stride-4 rows.
+    """
+    dev = z_m.device
+    m4 = BLOWUP * n
+    x_std = ntt.power_table(H.rou_fwd(m4), m4, dev)
+    x_pows = F.to_monty(torch.fmod(x_std * GENERATOR, P))
+    inv_z = _point_inverses(x_pows, z_m)
+    inv_zg = _point_inverses(x_pows, zg_m)
+    x4 = x_pows[::4]
+    gn = pow(GENERATOR, n, P)
+    den_inv = pow((n * gn) % P, P - 2, P)
+    gn_m = _to_dev(np.array([gn, 0, 0, 0], np.uint64), dev)
+
+    def bary(zz_m, inv4):
+        zn = F.ext_pow_const(zz_m, n)
+        mk = F.neg(F.mul_std(F.ext_sub(zn, gn_m), den_inv))
+        return F.ext_mul(F.ext_mul_base(inv4, x4), mk.expand(n, 4))
+
+    bw_pair = torch.cat([bary(z_m, inv_z[::4]), bary(zg_m, inv_zg[::4])],
+                        dim=1)
+    outs = tuple(_rows_dot(lde, bw_pair) for lde in groups)
+    return outs, inv_z, inv_zg
+
+
+def _deep_mix_s4(groups, bps_z, n_zg_groups: int):
+    """Beta-mixes of all committed columns on the stride-4 subdomain.
+
+    mix_z(x) = sum_c beta^c f_c(x) is itself a degree-<n polynomial, so
+    the n stride-4 LDE rows determine it. Returns (n, 8): [:, :4] = mix
+    over all groups, [:, 4:] = mix over the first n_zg_groups."""
+    n = groups[0].shape[0] // BLOWUP
+    dev = groups[0].device
+    acc_z = torch.zeros((n, 4), dtype=torch.int64, device=dev)
+    acc_pre = torch.zeros((n, 4), dtype=torch.int64, device=dev)
+    for gi, (cat, bz) in enumerate(zip(groups, bps_z)):
+        c = cat.shape[1]
+        b64 = bz.to(torch.int64)
+        chunk = max(1, min(n, CHUNK_ELEMS // 4 // max(c * 4, 1)))
+        s = torch.empty((n, 4), dtype=torch.int64, device=dev)
+        for k0 in range(0, n, chunk):
+            k1 = min(n, k0 + chunk)
+            r = cat[BLOWUP * k0:BLOWUP * k1:BLOWUP].to(torch.int64)
+            s[k0:k1] = torch.fmod(r[:, :, None] * b64[None], P).sum(dim=1)
+            del r
+        s = torch.fmod(torch.fmod(s, P) * RINV, P)
+        acc_z += s
+        if gi < n_zg_groups:
+            acc_pre += s
+    return torch.fmod(torch.cat([acc_z, acc_pre], dim=1), P).to(torch.int32)
+
+
+def _extend_coset_evals(vals):
+    """(n, c) evaluations on g*<w_n> -> (4n, c) on g*<w_4n>. The coset
+    shift cancels: with q(y) = f(g*y), the values are q on <w_n> and the
+    target is q on <w_4n> -- a plain (unshifted) blowup-4 LDE."""
+    n, c = vals.shape
+    padded = torch.zeros((BLOWUP * n, c), dtype=torch.int32,
+                         device=vals.device)
+    padded[:n] = ntt.intt(vals)
+    return ntt.ntt(padded)
+
+
+def _deep_f0(mix4, beta_nz, cz, cpre, iz, izg):
+    """f0(x) = [mix_z(x) - c_z]/(x - z)
+             + beta^n_z * [mix_pre(x) - c_pre]/(x - zg)."""
+    n4 = mix4.shape[0]
+    num_z = F.ext_sub(mix4[:, :4], cz.expand(n4, 4))
+    num_pre = F.ext_sub(mix4[:, 4:], cpre.expand(n4, 4))
+    num_zg = F.ext_mul(num_pre, beta_nz.expand(n4, 4))
+    return F.add(F.ext_mul(num_z, iz), F.ext_mul(num_zg, izg))
+
+
+def _deep_combine(groups_z, n_zg_groups, beta_pows_z, beta_nz,
+                  const_z, const_pre, inv_z, inv_zg):
+    mix_n = _deep_mix_s4(groups_z, beta_pows_z, n_zg_groups)
+    mix4 = _extend_coset_evals(mix_n)
+    return _deep_f0(mix4, beta_nz, const_z, const_pre, inv_z, inv_zg)
+
+
+def _open_groups(ldes_t, layers_t, qs):
+    """Queried LDE rows (standard form) + sibling digests for every group."""
+    rows, sibs = [], []
+    for lde, layers in zip(ldes_t, layers_t):
+        idx = torch.as_tensor(np.asarray(qs, np.int64), device=lde.device)
+        rows.append(_host_std(lde.index_select(0, idx)))
+        depth = len(layers) - 1
+        sibs.append(merkle._gather_paths(
+            layers, merkle._sibling_index_rows(qs, depth)))
+    return rows, sibs
+
+
+# -- prove ----------------------------------------------------------------------------
+
+
+def prove(air: Air, main_std: np.ndarray, publics: list[int],
+          derived_extra=None, extra_mix=None, main_commit=None,
+          device="cpu") -> StarkProof:
+    """Prove one AIR execution on `device`. main_std: (n, main_cols)
+    standard-form trace. The seal (``proof.encode``) equals the
+    reference prover's for the same inputs."""
+    device = torch.device(device)
+    n, c_main = main_std.shape
+    assert c_main == air.main_cols and n & (n - 1) == 0
+    po2 = n.bit_length() - 1
+
+    t = Transcript()
+    t.mix_values(np.array([po2] + [int(p) for p in publics], dtype=np.uint64))
+
+    # --- commit control / main ------------------------------------------
+    ldes, trees, roots = {}, {}, {}
+    for gname in ("control", "main"):
+        if gname == "main" and main_commit is not None:
+            ldes["main"], trees["main"] = main_commit
+            roots["main"] = trees["main"].root
+            t.mix(roots["main"])
+            continue
+        with _Stage(f"commit {gname}", device):
+            src = air.control_trace(po2) if gname == "control" else main_std
+            with _Stage(f"  {gname} upload", device):
+                dev = _upload_std(src, device)
+            with _Stage(f"  {gname} lde", device):
+                ldes[gname] = _lde(dev, std=True)
+            del dev
+            with _Stage(f"  {gname} tree", device):
+                trees[gname] = merkle.commit_rows(ldes[gname])
+            roots[gname] = trees[gname].root
+        t.mix(roots[gname])
+
+    # companion-proof commitment (e.g. the paging proof's main root):
+    # mixed before challenge sampling so witness bound by the companion
+    # is committed before the shared challenges exist (LogUp ordering)
+    if extra_mix is not None:
+        t.mix(np.asarray(extra_mix, np.uint64).reshape(8))
+
+    # --- aux group -------------------------------------------------------
+    sampled = np.stack([t.sample_ext() for _ in range(air.n_challenges)]) \
+        if air.n_challenges else np.zeros((0, 4), dtype=np.uint64)
+    challenges = all_challenges(air, publics, sampled, derived_extra)
+    if air.aux_cols:
+        with _Stage("commit aux", device):
+            with _Stage("  aux witgen (host)", device):
+                aux_std = air.build_aux(np.asarray(main_std, np.uint64),
+                                        challenges)
+            ldes["aux"] = _lde(_upload_std(aux_std, device), std=True)
+            del aux_std
+            trees["aux"] = merkle.commit_rows(ldes["aux"])
+            roots["aux"] = trees["aux"].root
+        t.mix(roots["aux"])
+    else:
+        ldes["aux"] = torch.zeros((BLOWUP * n, 0), dtype=torch.int32,
+                                  device=device)
+
+    # --- composition / check group --------------------------------------
+    alpha = t.sample_ext()
+    with _Stage("check group", device):
+        check_cols = _check_group(air, ldes, alpha, publics, challenges, n)
+        ldes["check"] = _lde(check_cols, std=False)
+        del check_cols
+        trees["check"] = merkle.commit_rows(ldes["check"])
+        roots["check"] = trees["check"].root
+    t.mix(roots["check"])
+
+    # --- DEEP taps -------------------------------------------------------
+    z = t.sample_ext()
+    w_n = H.rou_fwd(n)
+    zg = H.ext_mul(H.ext(z), H.ext(w_n))
+    gnames = [g for g in ("control", "main", "aux", "check")
+              if ldes[g].shape[1] > 0]
+    with _Stage("taps", device):
+        gv_dev, inv_z, inv_zg = _taps_fused(
+            tuple(ldes[g] for g in gnames), _to_dev(z, device),
+            _to_dev(zg, device), n)
+        group_vals = {g: _host_std(v) for g, v in zip(gnames, gv_dev)}
+    tap_vals = []
+    for (gname, offset) in TAP_STREAMS:
+        if ldes[gname].shape[1] == 0:
+            tap_vals.append(np.zeros((0, 4), dtype=np.uint64))
+            continue
+        tap_vals.append(group_vals[gname][:, 4 * offset:4 * offset + 4])
+    taps = np.concatenate(tap_vals, axis=0)
+    t.mix_values(taps.reshape(-1))
+
+    # --- DEEP combination ------------------------------------------------
+    beta = t.sample_ext()
+    n_z = air.control_cols + air.main_cols + air.aux_cols + 16
+    n_zg = air.control_cols + air.main_cols + air.aux_cols
+    beta_pows = H.ext_powers(beta, n_z + n_zg)            # (ntaps, 4) std
+    const_z = np.zeros(4, dtype=np.uint64)
+    const_pre = np.zeros(4, dtype=np.uint64)     # const_zg / beta^n_z
+    for j in range(n_z):
+        const_z = H.ext_add(const_z, H.ext_mul(beta_pows[j], taps[j]))
+    for j in range(n_zg):
+        const_pre = H.ext_add(const_pre,
+                              H.ext_mul(beta_pows[j], taps[n_z + j]))
+
+    # The DEEP combination orders zg-groups first in the beta-power
+    # stream (weights beta^(n_z + j) for the control/main/aux prefix);
+    # beta^n_z is factored out so both mixes share one set of products.
+    groups_z, bps_z = [], []
+    off = 0
+    for g in ("control", "main", "aux", "check"):
+        c = ldes[g].shape[1]
+        if c:
+            groups_z.append(ldes[g])
+            bps_z.append(_to_dev(beta_pows[off:off + c], device))
+        off += c
+    n_zg_groups = sum(1 for g in ("control", "main", "aux")
+                      if ldes[g].shape[1])
+    with _Stage("deep combine", device):
+        f0 = _deep_combine(groups_z, n_zg_groups, bps_z,
+                           _to_dev(beta_pows[n_z], device),
+                           _to_dev(const_z, device),
+                           _to_dev(const_pre, device), inv_z, inv_zg)
+
+    # --- FRI + query openings -------------------------------------------
+    with _Stage("fri", device):
+        fri_proof, qs = fri.prove(f0, GENERATOR, n, t)
+    del f0, groups_z, bps_z, inv_z, inv_zg, gv_dev
+    openings = {}
+    with _Stage("openings", device):
+        rows_t, sibs_t = _open_groups(
+            tuple(ldes[g] for g in gnames),
+            tuple(trees[g].layers for g in gnames), qs)
+        depth = len(trees[gnames[0]].layers) - 1
+        for g in ("control", "main", "aux", "check"):
+            if g not in gnames:
+                openings[g] = GroupOpening(
+                    rows=np.zeros((len(qs), 0), dtype=np.uint64), paths=[])
+                continue
+            gi = gnames.index(g)
+            sib_layers = sibs_t[gi]
+            paths = [np.stack([sib_layers[d][qi] for d in range(depth)])
+                     if depth else np.zeros((0, 8), np.uint64)
+                     for qi in range(len(qs))]
+            openings[g] = GroupOpening(rows=rows_t[gi], paths=paths)
+
+    return StarkProof(air_name=air.name, po2=po2, publics=list(publics),
+                      roots=roots, taps=taps, fri_proof=fri_proof,
+                      openings=openings, query_indices=qs)
