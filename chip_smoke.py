@@ -2,27 +2,35 @@
 
     python3 chip_smoke.py
 
-The main path is what bench.py measures for the JAX package: one halting
-``spin`` segment executed by the C++ executor, proved with its paging
-companion proof by ``zeth_tpu_torch.circuits.rv32im.prove_segment``, and
-both proofs verified. Phases, each of which exits non-zero on failure:
+The main paths are what bench.py measures for the JAX package: one
+halting ``spin`` segment, and the first segment of the stateless-client
+(EVM) guest validating the smaller fixture block, each executed by the
+C++ executor, proved with its paging companion proof by
+``zeth_tpu_torch.circuits.rv32im`` and verified. Phases, each of which
+exits non-zero on failure:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every CUDA kernel of the path from the sources in the checkout
    (one nvcc per source, all started together);
 3. kernels: each kernel against its plain PyTorch version on the card,
-   bit for bit, at the main path's shapes, with both times;
+   bit for bit, at the main path's shapes, with both times and the
+   least time the card could take for the same work;
 4. oracle: a small spin segment proved on the card must hash to the seal
    digests in tests/fixtures/torch_port_seals.json (the CPU seals, which
    tests/test_torch_rv32im.py holds equal to the JAX package's);
-5. headline: the po2=20 spin segment and its paging proof, untimed
-   inside (as a user runs it), with the kernels' launch counts read
-   around this run alone;
-6. stages: the same prove again with the prover's stage timers on (each
-   stage ends in a device synchronisation), for the breakdown only;
-7. verify: both proofs of the headline, with the port's host verifier;
-8. stats, then a ``{"kernels": [...]}`` line, the card line, and the
-   final ``{"ok": true, ...}`` line.
+5. spin: a po2=18 spin segment and its paging proof, untimed inside (as
+   a user runs it), the kernels' launch counts read around this run
+   alone, both proofs verified; then the po2=20 spin segment proved once
+   with the prover's stage timers on, for the breakdown only;
+6. EVM front end: the guest ELF compiled from the checkout's C sources,
+   the fixture block encoded, the guest executed with its trace;
+7. aux: ``build_aux_device`` on the card against the host ``build_aux``
+   on the EVM segment's main trace at po2=20, word for word;
+8. EVM: ``prove_segments`` of that segment at po2=20, once untimed (launch
+   counts and peak memory read around it) and once with the stage
+   timers, same seals; both proofs verified as bench.py verifies them;
+9. a ``{"kernels": [...]}`` line, the card line, and the final
+   ``{"ok": true, ...}`` line.
 
 The script needs a CUDA card: without one it exits non-zero before any
 result. It imports no jax and nothing of the JAX package (``zeth_tpu``).
@@ -30,9 +38,11 @@ result. It imports no jax and nothing of the JAX package (``zeth_tpu``).
 
 from __future__ import annotations
 
+import glob
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import time
 
@@ -42,8 +52,22 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_seals.json")
 
-# the headline segment size: the reference's, and bench.py's BASELINE
+# the EVM segment's size (the reference's, and bench.py's BASELINE) and
+# the spin path's, cut in depth to keep the host verifier's time down
 PO2 = 20
+SPIN_PO2 = 18
+
+# NVIDIA's data sheet for the H100 SXM: HBM bytes/s, and float32 outside
+# the tensor cores. int32 instructions issue on half of the float32 lanes
+# and an FMA counts as two operations: 67e12 / 2 / 2 per second.
+PEAK_BYTES = 3.35e12
+PEAK_INT32 = 67e12 / 2 / 2
+
+# the aux group's 27 blocks of 4 columns, in the order they are laid out
+AUX_BLOCKS = ["t", "u", "acc", "t_r1", "t_r2", "t_w", "t_a7", "s0", "s1",
+              "s2", "s3", "racc", "mu_r", "mu_w", "msort0", "msort1",
+              "macc", "li", "lf", "liacc", "lfacc", "r_j", "r_k", "r_b",
+              "r_sh", "r_re", "r_rx"]
 
 # the Poseidon2 leaf kernel's shapes: edge cases, then the rv32im main
 # group at po2=10 and at po2=20 (2^22 LDE rows x 1009 columns)
@@ -86,6 +110,23 @@ def cuda_ms(fn, reps: int) -> tuple:
     return out, start.elapsed_time(stop) / reps
 
 
+def leaf_bound_ms(rows: int, cols: int) -> tuple:
+    """(least ms the card could take for the leaf sponge, what bounds it).
+
+    Bytes: the matrix read once, the digests written once. Operations: one
+    width-24 permutation per 16 absorbed columns; a permutation is 8 full
+    and 21 partial rounds, 8*24*4 + 21*(4+24) Montgomery products (three
+    integer multiplies and two add/select steps each) and 9*128 + 213 +
+    21*47 + 16 modular additions (an add and a conditional subtract)."""
+    perms = rows * -(-cols // 16)
+    products = 8 * 24 * 4 + 21 * (4 + 24)
+    additions = 9 * 128 + (8 * 24 + 21) + 21 * 47 + 16
+    ops_ms = perms * (5 * products + 2 * additions) / PEAK_INT32 * 1e3
+    bytes_ms = (rows * cols * 4 + rows * 8 * 4) / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), \
+        "operations" if ops_ms >= bytes_ms else "bytes"
+
+
 def check_leaf_kernel(dev, P) -> dict:
     """The leaf kernel against hash_rows at every shape; times at each."""
     from zeth_tpu_torch.hash import poseidon2 as P2
@@ -115,7 +156,10 @@ def check_leaf_kernel(dev, P) -> dict:
             main = (ms, plain_ms)
         del rows, got, want
         torch.cuda.empty_cache()
-    return {"max_abs_err": worst, "ms": main[0], "plain_ms": main[1]}
+    bound, by = leaf_bound_ms(*LEAF_SHAPES[-1])
+    # no single PyTorch call computes a Poseidon2 sponge
+    return {"max_abs_err": worst, "ms": main[0], "plain_ms": main[1],
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
 def spin_segment(spin_iters: int, segment_po2: int):
@@ -129,9 +173,10 @@ def spin_segment(spin_iters: int, segment_po2: int):
     return res.segments[0], ia, iw
 
 
-def verify_pair(seal, pg_seal, ia, iw) -> None:
+def verify_pair(seal, pg_seal, ia, iw) -> tuple:
     """Both proofs with the port's verifier, as bench.py checks an EVM
-    segment: the paging proof, the rv32im proof bound to it, then g4."""
+    segment: the paging proof, the rv32im proof bound to it, then g4.
+    Returns the seconds of the two verifications."""
     from zeth_tpu_torch.circuits.paging import PagingAir
     from zeth_tpu_torch.circuits.rv32im import Rv32imAir
     from zeth_tpu_torch.zkp import proof as proof_mod
@@ -139,13 +184,138 @@ def verify_pair(seal, pg_seal, ia, iw) -> None:
     proof, pg_proof = proof_mod.decode(seal), proof_mod.decode(pg_seal)
     pg_pubs = [int(p) for p in pg_proof.publics]
     ppg = PagingAir.parse_publics(pg_pubs)
+    t0 = time.time()
     verifier.verify(PagingAir(), pg_proof, pg_pubs)
+    t1 = time.time()
     sampled = verifier.verify(
         Rv32imAir(ia, iw), proof, [int(p) for p in proof.publics],
         derived_extra={"d0": ppg["d0"], "d1": ppg["d1"]},
         extra_mix=pg_proof.roots["main"])
     if not (np.asarray(sampled[4], np.uint64) == ppg["g4"]).all():
         raise SystemExit("paging proof's g4 differs from the rv32im proof's")
+    return t1 - t0, time.time() - t1
+
+
+def evm_segment():
+    """The stateless-client guest on the smaller fixture block, as
+    bench.py runs it: (first segment, image addrs, image words, result)."""
+    from zeth_tpu_torch.app import guest_input
+    from zeth_tpu_torch.app.chainspec import MAINNET
+    from zeth_tpu_torch.app.host import StatelessInput
+    from zeth_tpu_torch.executor import Executor, load_image
+    paths = sorted(glob.glob(os.path.join(ROOT, "tests", "fixtures",
+                                          "input_0x*.json")),
+                   key=os.path.getsize)
+    if not paths:
+        raise SystemExit("no fixture block under tests/fixtures")
+    with open(paths[0]) as f:
+        inp = StatelessInput.from_json(json.load(f))
+    # no cached ELF: the guest is compiled from the checkout's sources
+    shutil.rmtree(os.path.join(ROOT, "zeth_tpu_torch", "guest", ".build"),
+                  ignore_errors=True)
+    t0 = time.time()
+    elf = guest_input.build_stateless_elf()
+    log(f"[evm] guest ELF compiled from the checkout's C sources by "
+        f"zeth_tpu_torch.cc: {len(elf)} bytes, sha256 "
+        f"{hashlib.sha256(elf).hexdigest()[:16]}, {time.time() - t0:.1f} s")
+    _, ia, iw = load_image(elf)
+    raw = guest_input.encode_guest_input(inp, MAINNET.chain_id)
+    t0 = time.time()
+    res = Executor(elf, input_bytes=raw, segment_po2=PO2, trace=True).run()
+    if res.exit_code != 0 or res.journal != inp.block.hash():
+        raise SystemExit("the guest did not validate the fixture block")
+    log(f"[evm] block {os.path.basename(paths[0])[6:16]}: input "
+        f"{len(raw)} bytes, {len(res.segments)} segments, "
+        f"{res.user_cycles} user + {res.paging_cycles} paging cycles, "
+        f"{res.keccak_calls} keccak / {res.bigint_calls} bigint / "
+        f"{res.sha_calls} sha calls, journal = block hash, executed with "
+        f"trace in {time.time() - t0:.1f} s")
+    return res.segments[0], ia, iw, res
+
+
+def check_aux(dev, card, seg, ia, iw) -> None:
+    """build_aux_device on the card against the host build_aux, on the
+    segment's main trace under seeded challenges, word for word."""
+    from zeth_tpu_torch import field as F
+    from zeth_tpu_torch.circuits import rv32im
+    from zeth_tpu_torch.hostmath import P
+    from zeth_tpu_torch.zkp import prover
+    air = rv32im.Rv32imAir(ia, iw)
+    po2 = rv32im.choose_po2(seg, len(ia))
+    main, _ = air.witgen(seg, po2)
+    chal = np.random.default_rng(3).integers(
+        1, P, size=(air.n_challenges, 4)).astype(np.uint64)
+    t0 = time.time()
+    want = np.asarray(air.build_aux(main, chal), np.uint64)
+    host_s = time.time() - t0
+    main_dev = prover._upload_std(main, dev)
+    ctrl_dev = prover._upload_std(air.control_trace(po2), dev)
+    air.build_aux_device(main_dev, ctrl_dev, chal)             # warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.time()
+    got_m = air.build_aux_device(main_dev, ctrl_dev, chal)
+    torch.cuda.synchronize()
+    dev_s = time.time() - t0
+    extra = torch.cuda.max_memory_allocated(dev) - base
+    got = F.from_monty(got_m).cpu().numpy().astype(np.uint64)
+    if got.shape != want.shape:
+        raise SystemExit(f"aux shape {got.shape}, expected {want.shape}")
+    bad = np.nonzero((got != want).any(axis=0))[0]
+    if bad.size:
+        raise SystemExit(
+            f"build_aux_device differs from the host build_aux first in "
+            f"block {AUX_BLOCKS[bad[0] // 4]} (column {bad[0]}), "
+            f"{bad.size} columns differ")
+    filled = [b for k, b in enumerate(AUX_BLOCKS)
+              if want[:, 4 * k:4 * k + 4].any()]
+    # what build_aux_device's time is made of: its 17 per-row extension
+    # inverses (a power p-2 on every row) and the six RLC chains' scan
+    n = got_m.shape[0]
+    x = got_m[:, :4].contiguous()
+    _, inv_ms = cuda_ms(lambda: F.ext_inv(x), 3)
+    act = (got_m[:, :6] & 1) * F.mont_one()
+    val = got_m[:, :24].reshape(n, 6, 4).contiguous()
+    one = F.to_monty(torch.tensor([1, 0, 0, 0], device=dev))
+    _, scan_ms = cuda_ms(
+        lambda: rv32im._dx_rlc_chain(act, val, val[1, 0], one), 2)
+    log(f"{card} | [aux] ext_inv of ({n}, 4): {inv_ms:.3f} ms, 17 per build; "
+        f"_dx_rlc_chain of ({n}, 6, 4): {scan_ms:.3f} ms, one per build")
+    log(f"{card} | [aux] po2={po2}: build_aux_device equals the host "
+        f"build_aux on all {want.shape[1]} columns x {want.shape[0]} rows "
+        f"({len(filled)} of {len(AUX_BLOCKS)} blocks non-zero); device "
+        f"{dev_s:.3f} s (+{extra / 2**30:.2f} GiB over the resident main "
+        f"and control), host {host_s:.3f} s")
+    del main_dev, ctrl_dev, got_m
+    torch.cuda.empty_cache()
+
+
+def require_launches(launches: dict, path: str) -> None:
+    for name, n in launches.items():
+        if n == 0:
+            raise SystemExit(f"kernel {name} was not launched by the "
+                             f"{path} path")
+
+
+def staged_prove(card, tag, prove):
+    """One prove with the prover's stage timers on; prints the table."""
+    from zeth_tpu_torch.zkp import prover
+    prover.TIMING = True
+    prover.STAGE_LOG.clear()
+    t0 = time.time()
+    out = prove()
+    torch.cuda.synchronize()
+    total = time.time() - t0
+    prover.TIMING = False
+    for name, dt in prover.STAGE_LOG:
+        log(f"{card} | [{tag}] {name.strip()}: {dt:.3f} s")
+    log(f"{card} | [{tag}] prove with stage timers: {total:.3f} s")
+    return out
+
+
+def same_seals(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
 
 
 def main() -> None:
@@ -159,7 +329,8 @@ def main() -> None:
     from zeth_tpu_torch.zkp import prover
 
     # 1. device
-    log(f"[device] {card_line()}; torch {torch.__version__}, CUDA "
+    card = card_line()
+    log(f"[device] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
     # 2. build
@@ -184,55 +355,69 @@ def main() -> None:
     log(f"[oracle] spin({fx['spin_iters']}) po2={fx['po2']}: seal and paging "
         f"seal equal the fixture digests ({time.time() - t0:.1f} s)")
 
-    # 5. the headline: one halting PO2 segment (bench.py's guest sizing),
-    # proved as a user calls it, with no stage timer synchronising
-    t0 = time.time()
-    seg, ia, iw = spin_segment(((1 << PO2) - 4096) * 3 // 2, PO2)
+    # 5. the spin path: one halting segment (bench.py's guest sizing) at
+    # SPIN_PO2, proved as a user calls it, with no stage timer
+    # synchronising, and verified
+    seg, ia, iw = spin_segment(((1 << SPIN_PO2) - 4096) * 3 // 2, SPIN_PO2)
     cycles = int(seg.trace.shape[0])
-    log(f"[main] spin segment: {cycles} cycles, executed in "
-        f"{time.time() - t0:.1f} s")
     prover.TIMING = False
-    torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_counts()
     t0 = time.time()
     seal, pg_seal = rv32im.prove_segment(seg, ia, iw, device=dev)
     torch.cuda.synchronize()
     prove_s = time.time() - t0
+    spin_launches = dict(kernels.LAUNCHES)
+    require_launches(spin_launches, "spin")
+    pg_s, rv_s = verify_pair(seal, pg_seal, ia, iw)
+    log(f"{card} | [spin] po2={SPIN_PO2}: {cycles} cycles, prove_segment "
+        f"{prove_s:.3f} s ({cycles / prove_s / 1e6:.4f} Mcycles/s), verify "
+        f"{pg_s:.3f} s paging + {rv_s:.3f} s rv32im, launches "
+        f"{spin_launches}")
+    # the stage breakdown at the full depth, comparable to earlier runs
+    seg, ia, iw = spin_segment(((1 << PO2) - 4096) * 3 // 2, PO2)
+    log(f"{card} | [spin-stage] po2={PO2}: {int(seg.trace.shape[0])} cycles")
+    staged_prove(card, "spin-stage",
+                 lambda: rv32im.prove_segment(seg, ia, iw, device=dev))
+    del seg
+    torch.cuda.empty_cache()
+
+    # 6. the EVM segment's front end
+    seg, ia, iw, res = evm_segment()
+    cycles = int(seg.trace.shape[0])
+    del res
+
+    # 7. the aux group on the card against the host oracle
+    check_aux(dev, card, seg, ia, iw)
+
+    # 8. the EVM path, full width and depth: untimed, then staged
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_counts()
+    t0 = time.time()
+    seals, pg_seals = rv32im.prove_segments([seg], ia, iw, device=dev)
+    torch.cuda.synchronize()
+    prove_s = time.time() - t0
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
-    for name, n in launches.items():
-        if n == 0:
-            raise SystemExit(f"kernel {name} was not launched by the main "
-                             "path")
-
-    # 6. the stage breakdown, from a second prove with the stage timers on
-    prover.TIMING = True
-    prover.STAGE_LOG.clear()
-    t0 = time.time()
-    staged = rv32im.prove_segment(seg, ia, iw, device=dev)
-    torch.cuda.synchronize()
-    staged_s = time.time() - t0
-    prover.TIMING = False
-    if not all(np.array_equal(a, b) for a, b in zip(staged, (seal, pg_seal))):
+    require_launches(launches, "EVM")
+    staged = staged_prove(
+        card, "evm-stage",
+        lambda: rv32im.prove_segments([seg], ia, iw, device=dev))
+    if not (same_seals(staged[0], seals) and same_seals(staged[1], pg_seals)):
         raise SystemExit("the stage-timed prove gave other seals")
-    for name, dt in prover.STAGE_LOG:
-        log(f"[stage] {name.strip()}: {dt:.3f} s")
-    log(f"[stage] prove_segment with stage timers: {staged_s:.3f} s")
+    pg_s, rv_s = verify_pair(seals[0], pg_seals[0], ia, iw)
+    words = seals[0].shape[0] + pg_seals[0].shape[0]
+    log(f"{card} | [evm] po2={PO2}: segment 0, {cycles} cycles, "
+        f"prove_segments {prove_s:.3f} s "
+        f"({cycles / prove_s / 1e6:.4f} Mcycles/s), verify {pg_s:.3f} s "
+        f"paging + {rv_s:.3f} s rv32im, seal {seals[0].shape[0]} + paging "
+        f"{pg_seals[0].shape[0]} words ({words * 4 / 1024:.1f} KiB), "
+        f"peak device memory {peak / 2**30:.2f} GiB, launches {launches}")
 
-    # 7. verify both proofs
-    t0 = time.time()
-    verify_pair(seal, pg_seal, ia, iw)
-    verify_s = time.time() - t0
-
-    # 8. stats and results
-    log(f"[main] po2={PO2}: {cycles} cycles, prove_segment {prove_s:.3f} s "
-        f"({cycles / prove_s / 1e6:.4f} Mcycles/s), verify {verify_s:.3f} s, "
-        f"seal {seal.shape[0]} + paging {pg_seal.shape[0]} words "
-        f"({(seal.shape[0] + pg_seal.shape[0]) * 4 / 1024:.1f} KiB), "
-        f"peak device memory {peak / 2**30:.2f} GiB, "
-        f"launches {launches}")
+    # 9. results
     print(json.dumps({"kernels": [
         dict(name=name, **KERNELS[name], launches=launches[name],
+             launches_by_path={"spin": spin_launches[name],
+                               "evm": launches[name]},
              **results[name]) for name in kernels.NAMES]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

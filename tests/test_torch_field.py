@@ -13,10 +13,16 @@ import jax.numpy as jnp
 
 from zeth_tpu import field as JF
 from zeth_tpu_torch import field as TF
-from zeth_tpu_torch.convert import to_numpy, to_tensor
+from zeth_tpu_torch.convert import to_numpy
+from zeth_tpu_torch.convert import to_tensor as _to_tensor
 from zeth_tpu_torch.hostmath import P
 
 torch.set_num_threads(2)
+
+
+def to_tensor(a):
+    """The tests run on the CPU; the port's default device is the card."""
+    return _to_tensor(a, device="cpu")
 
 EDGES = np.array([0, 1, P - 1, P - 2], dtype=np.uint32)
 

@@ -17,10 +17,16 @@ from zeth_tpu.hash import merkle as JM
 from zeth_tpu.hash import poseidon2 as JP2
 from zeth_tpu_torch import hostmath as H
 from zeth_tpu_torch import ntt as TN
-from zeth_tpu_torch.convert import to_numpy, to_tensor
+from zeth_tpu_torch.convert import to_numpy
+from zeth_tpu_torch.convert import to_tensor as _to_tensor
 from zeth_tpu_torch.hash import merkle as TM
 
 torch.set_num_threads(2)
+
+
+def to_tensor(a):
+    """The tests run on the CPU; the port's default device is the card."""
+    return _to_tensor(a, device="cpu")
 
 
 def _monty(seed: int, shape) -> np.ndarray:

@@ -11,6 +11,8 @@ import subprocess
 import sys
 import textwrap
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 HOOK = textwrap.dedent("""
@@ -46,9 +48,37 @@ def test_every_port_module_imports_without_jax():
         import chip_smoke
         assert not any(m.split(".")[0] in ("jax", "jaxlib", "zeth_tpu")
                        for m in sys.modules)
-        print(len(names))
+        print(" ".join(names))
     """)
-    assert int(out.split()[-1]) >= 20
+    names = out.split()
+    assert len(names) >= 38
+    for name in ("hash.keccak", "app.rlp", "app.chainspec", "app.trie",
+                 "app.state", "app.txs", "app.host", "app.kzg",
+                 "app.bls12381", "app.guest_input", "cc", "cc.compiler"):
+        assert "zeth_tpu_torch." + name in names
+
+
+def test_stateless_guest_builds_and_runs_without_jax():
+    """The EVM segment's front end, as the card's machine runs it: build
+    the guest ELF, encode the smaller fixture block, execute untraced."""
+    out = _run("""
+        import glob, json, os
+        from zeth_tpu_torch.app.chainspec import MAINNET
+        from zeth_tpu_torch.app.guest_input import (build_stateless_elf,
+                                                    encode_guest_input)
+        from zeth_tpu_torch.app.host import StatelessInput
+        from zeth_tpu_torch.executor import Executor
+        path = sorted(glob.glob("tests/fixtures/input_0x*.json"),
+                      key=os.path.getsize)[0]
+        with open(path) as f:
+            inp = StatelessInput.from_json(json.load(f))
+        raw = encode_guest_input(inp, MAINNET.chain_id)
+        res = Executor(build_stateless_elf(), input_bytes=raw,
+                       segment_po2=20).run()
+        assert res.exit_code == 0 and res.journal == inp.block.hash()
+        print("segments", len(res.segments))
+    """)
+    assert int(out.split()[-1]) > 1
 
 
 def test_toy_prove_and_verify_without_jax():
@@ -59,8 +89,57 @@ def test_toy_prove_and_verify_without_jax():
         from zeth_tpu_torch.zkp import proof, prover, verifier
         air = SquareChainAir()
         main, pubs = SquareChainAir.witgen(5, x0=3)
-        seal = proof.encode(prover.prove(air, main, pubs))
+        seal = proof.encode(prover.prove(air, main, pubs, device="cpu"))
         verifier.verify(air, proof.decode(seal), pubs)
         print("verified", seal.shape[0])
     """)
     assert "verified" in out
+
+
+def _default_device_calls():
+    """name -> call of a repaired entry point with no ``device``."""
+    import numpy as np
+
+    from zeth_tpu_torch import convert
+    from zeth_tpu_torch.circuits import rv32im
+    from zeth_tpu_torch.circuits.toy import SquareChainAir
+    from zeth_tpu_torch.executor import Executor, guests, load_image
+    from zeth_tpu_torch.zkp import prover
+    from zeth_tpu_torch.zkp.transcript import Transcript
+
+    def toy():
+        return (SquareChainAir(), *SquareChainAir.witgen(5, x0=3))
+
+    def segment():
+        elf = guests.sum_loop(20)
+        _, ia, iw = load_image(elf)
+        seg = Executor(elf, segment_po2=12, trace=True).run().segments[0]
+        return seg, ia, iw
+
+    return {
+        "to_tensor": lambda: convert.to_tensor(np.arange(4, dtype=np.uint32)),
+        "grind": lambda: Transcript().grind(4),
+        "commit_main": lambda: prover.commit_main(*toy()[:2]),
+        "prove": lambda: prover.prove(*toy()),
+        "prove_segments": lambda: (lambda s, ia, iw: rv32im.prove_segments(
+            [s], ia, iw))(*segment()),
+        "prove_segment": lambda: rv32im.prove_segment(*segment()),
+    }
+
+
+@pytest.mark.parametrize("entry", ["to_tensor", "grind", "commit_main",
+                                   "prove", "prove_segments",
+                                   "prove_segment"])
+def test_entry_point_without_device_raises_without_cuda(monkeypatch, entry):
+    """The entry points run on the card by default; where there is none
+    they raise and do not carry on on the CPU."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        _default_device_calls()[entry]()
+
+
+def test_entry_point_runs_on_the_cpu_on_request():
+    from zeth_tpu_torch import convert
+    assert convert.resolve_device("cpu").type == "cpu"
+    assert convert.to_tensor([1, 2], device="cpu").device.type == "cpu"

@@ -82,7 +82,7 @@ def _port_seals():
     elf = TGUESTS.spin(fx["spin_iters"])
     _, ia, iw = TEX.load_image(elf)
     res = TEX.Executor(elf, segment_po2=fx["segment_po2"], trace=True).run()
-    return TRV.prove_segment(res.segments[0], ia, iw)
+    return TRV.prove_segment(res.segments[0], ia, iw, device="cpu")
 
 
 def _boundary_extra(seg):

@@ -11,6 +11,9 @@ reference's module names, so each module's counterpart is easy to find:
                              (host numpy)
 - ``circuits``               rv32im, paging and toy AIRs (host copies)
 - ``executor``               the C++ RV32IM emulator and its guests (copy)
+- ``app``, ``cc``, ``guest`` the stateless-client guest's front end: input
+                             model and encoder, the C compiler, the guest's
+                             C sources (copies)
 - ``convert``                numpy uint32 <-> int32 tensor conversion
 
 The port imports ``torch`` and never ``jax``, and nothing of the reference
@@ -20,8 +23,10 @@ jax-free copies, which the tests hold equal to the reference's.
 Field elements are ``torch.int32`` tensors (p = 2013265921 < 2^31) in
 Montgomery form with R = 2^32, so every intermediate array equals the
 reference's uint32 array bit for bit. Products are formed in int64. Every
-device function takes its tensors' device; nothing picks a device
-implicitly.
+device function takes its tensors' device. The entry points (``prove``,
+``commit_main``, ``prove_segments``, ``prove_segment``, ``Transcript.grind``,
+``convert.to_tensor``) run on the CUDA card unless the caller passes a
+device, and raise where there is no card (``convert.resolve_device``).
 """
 
 __version__ = "0.1.0"

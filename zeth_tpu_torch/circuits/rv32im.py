@@ -3,9 +3,12 @@
 Counterpart of ``zeth_tpu.circuits.rv32im``: the layout, the AIR (control
 trace, witgen, host ``build_aux``, derived challenges, constraints) and
 the publics helpers are a jax-free copy of the reference's host code;
-``prove_segments`` / ``prove_segment`` run on the port's torch prover.
-The reference's device aux path (``build_aux_device``) and its chain verifier
-(``verify_segments`` / ``verify_chain``) have no counterpart here yet.
+``prove_segments`` / ``prove_segment`` run on the port's torch prover,
+which builds the aux group on its device with ``build_aux_device`` (the
+``_dx_*`` helpers and ``_build_aux`` at the end of this module, a plain
+torch composition like the reference's XLA program). The reference's chain
+verifier (``verify_segments`` / ``verify_chain``) has no counterpart here
+yet.
 
 TPU-native re-design of risc0-circuit-rv32im's role (SURVEY.md §2.2):
 the C++ executor (zeth_tpu_torch.executor) emits per-cycle trace records;
@@ -44,8 +47,11 @@ Max constraint degree: 4 (the prover's limit).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from .. import field as F
 from .. import hostmath as H
+from ..convert import resolve_device
 from ..hostmath import P
 from ..zkp import proof as proof_mod
 from ..zkp import prover as prover_mod
@@ -1165,6 +1171,17 @@ class Rv32imAir(Air):
             axis=1)
         assert aux.shape == (n, N_AUX)
         return aux
+
+    def build_aux_device(self, main_dev_std, ctrl_dev_std, challenges):
+        """Device twin of build_aux: the LogUp/permutation accumulator
+        columns computed from the standard-form main and control tensors
+        that are already on the device (no (n, aux) host matrix, no
+        second upload). Returns Montgomery form, equal word for word to
+        the host path, which stays the oracle and serves AIRs without a
+        device twin."""
+        chal = np.asarray(challenges, np.uint64)[:7].astype(np.int64)
+        return _build_aux(main_dev_std, ctrl_dev_std,
+                          torch.from_numpy(chal).to(main_dev_std.device))
 
     # -- derived challenge scalars ----------------------------------------
 
@@ -2454,8 +2471,9 @@ def choose_po2(seg, image_len: int) -> int:
     return max(int(np.ceil(np.log2(need))), 7)
 
 
-def prove_segments(segments, image_addrs, image_words, device="cpu"):
-    """Prove a chain of executor segments on `device`.
+def prove_segments(segments, image_addrs, image_words, device=None):
+    """Prove a chain of executor segments on `device` (None: the CUDA
+    card; without one the call raises).
 
     Returns (seals, paging_seals): per segment, the rv32im STARK seal
     and its companion paging seal (circuits/paging.py). The paging main
@@ -2469,6 +2487,7 @@ def prove_segments(segments, image_addrs, image_words, device="cpu"):
     """
     from ..hash import pagetree as PT_
     from . import paging as paging_mod
+    device = resolve_device(device)
     air = _air_for_image(image_addrs, image_words)
     pg_air = paging_mod.PagingAir()
     tree = PT_.SparsePageTree(image_addrs, image_words)
@@ -2500,17 +2519,21 @@ def prove_segments(segments, image_addrs, image_words, device="cpu"):
                pg_main=pg_main, pg_commit=pg_commit):
             g4 = H.ext(np.asarray(sampled[4], np.uint64))
             g5 = H.ext(np.asarray(sampled[5], np.uint64))
-            pg_pubs = paging_mod.PagingAir.pack_publics(
-                sampled[4], sampled[5], r0, r1,
-                paging_mod._touch_sum(pn, prep, tch, sampled[4], sampled[5]),
-                paging_mod._touch_sum(pn, postp, tch, sampled[4], sampled[5]))
+            with prover_mod._Stage("paging touch sums (host)", device):
+                pg_pubs = paging_mod.PagingAir.pack_publics(
+                    sampled[4], sampled[5], r0, r1,
+                    paging_mod._touch_sum(pn, prep, tch, sampled[4],
+                                          sampled[5]),
+                    paging_mod._touch_sum(pn, postp, tch, sampled[4],
+                                          sampled[5]))
             with prover_mod._Stage("paging prove", device):
                 done["pg"] = prover_mod.prove(pg_air, pg_main, pg_pubs,
                                               main_commit=pg_commit,
                                               device=device)
             g5p = H.ext_powers(g5, 3)
-            return {"d0": _list_sum(init_list, g4, g5p),
-                    "d1": _list_sum(fin_list, g4, g5p)}
+            with prover_mod._Stage("boundary list sums (host)", device):
+                return {"d0": _list_sum(init_list, g4, g5p),
+                        "d1": _list_sum(fin_list, g4, g5p)}
 
         with prover_mod._Stage("rv32im prove", device):
             proof = prover_mod.prove(air, main, publics, derived_extra=dx,
@@ -2523,8 +2546,248 @@ def prove_segments(segments, image_addrs, image_words, device="cpu"):
     return seals, pg_seals
 
 
-def prove_segment(seg, image_addrs, image_words, device="cpu"):
+def prove_segment(seg, image_addrs, image_words, device=None):
     """Prove one executor segment starting from the pristine image
-    (single-segment guests / benches); returns (seal, paging_seal)."""
+    (single-segment guests / benches) on `device` (None: the CUDA card);
+    returns (seal, paging_seal)."""
     seals, pg_seals = prove_segments([seg], image_addrs, image_words, device)
     return seals[0], pg_seals[0]
+
+
+# ---------------------------------------------------------------------------
+# Device aux group: the torch twin of Rv32imAir.build_aux. All
+# multiplicative work happens in Montgomery form on the device; running
+# sums are one int64 cumsum and one reduction; the RLC chains are
+# affine-map scans in log(n) steps. Output is the Montgomery-form
+# (n, N_AUX) int32 matrix (ready for the prover's coset LDE), equal word
+# for word to the host path. Only the main columns that the argument
+# reads are converted, so no temporary is as wide as the main group.
+# ---------------------------------------------------------------------------
+
+
+def _dx_lump(main, name, lo):
+    """16-bit lump of a 32-bit decomposed column group -> (n,) int64."""
+    s = LAYOUT.slices[name]
+    base = s.start + (0 if lo else 16)
+    return _dx_weigh(main[:, base:base + 16])
+
+
+def _dx_bits(main, name, lo, hi):
+    """Value of bits [lo, hi) of a decomposed column group -> (n,) int64."""
+    s = LAYOUT.slices[name]
+    return _dx_weigh(main[:, s.start + lo:s.start + hi])
+
+
+def _dx_weigh(cols):
+    w = torch.ones(cols.shape[1], dtype=F.I64, device=cols.device) \
+        << torch.arange(cols.shape[1], device=cols.device)
+    return (cols.to(F.I64) * w).sum(dim=1)
+
+
+def _dx_ext_powers(g_m, k):
+    """g (4,) monty -> (k, 4) monty powers g^0..g^(k-1)."""
+    one = torch.zeros(4, dtype=F.I32, device=g_m.device)
+    one[0] = F.mont_one()
+    out = [one]
+    for _ in range(k - 1):
+        out.append(F.ext_mul(out[-1], g_m))
+    return torch.stack(out)
+
+
+def _dx_fingerprint(parts_m, gp):
+    """sum_k parts[k] * g^k; parts are (n,) base monty; gp (k,4) monty."""
+    acc = torch.zeros((parts_m[0].shape[0], 4), dtype=F.I32,
+                      device=gp.device)
+    for k, b in enumerate(parts_m):
+        acc = F.ext_add(acc, F.ext_mul_base(gp[k][None, :], b))
+    return acc
+
+
+def _dx_term(gamma_m, fp_m, act_m):
+    inv = F.ext_inv(F.ext_sub(gamma_m.expand(fp_m.shape), fp_m))
+    return F.ext_mul_base(inv, act_m)
+
+
+def _dx_cumsum(x):
+    """Running sum along axis 0. A sum of Montgomery forms is the
+    Montgomery form of the sum, and n * p < 2^53 is exact in int64."""
+    return torch.fmod(torch.cumsum(x.to(F.I64), dim=0), P).to(F.I32)
+
+
+def _dx_rlc_chain(act_m, val_m, g6sq_m, one_ext):
+    """Affine scan along axis 0: r_i = act ? r_{i-1}*g6^2 + val_i : r_{i-1}.
+
+    act_m: (n, ...) monty 0/1; val_m: (n, ..., 4). Inclusive scan of the
+    maps x -> m*x + c under composition, in log2(n) doubling steps
+    (Hillis-Steele): after the step of distance d, entry i holds the
+    composition of the maps i-2d+1..i."""
+    n = act_m.shape[0]
+    m = torch.where(act_m[..., None] != 0, g6sq_m, one_ext)
+    c = F.ext_mul_base(val_m, act_m)     # act is 0/1: keeps or zeroes val
+    d = 1
+    while d < n:
+        c = torch.cat([c[:d], F.ext_add(F.ext_mul(m[d:], c[:-d]), c[d:])])
+        if 2 * d < n:
+            m = torch.cat([m[:d], F.ext_mul(m[:-d], m[d:])])
+        d *= 2
+    return c
+
+
+def _build_aux(main, ctrl, chal_std):
+    """main/ctrl: standard-form int32 device tensors; chal_std: (7, 4)
+    standard-form integers. Returns the MONTGOMERY-form (n, N_AUX) aux
+    matrix (feeds the coset LDE directly)."""
+    n = main.shape[0]
+    dev = main.device
+    L = LAYOUT
+    monty = F.to_monty
+    ch = monty(chal_std)                 # (7, 4) monty
+    one_ext = torch.zeros(4, dtype=F.I32, device=dev)
+    one_ext[0] = F.mont_one()
+
+    # standard-form int64 / Montgomery views of single main columns
+    col = lambda *a: main[:, L.idx(*a)].to(F.I64)
+    colm = lambda *a: monty(main[:, L.idx(*a)])
+    sel = lambda nm: col("sel", CLASS_IDX[nm])
+    selm = lambda nm: colm("sel", CLASS_IDX[nm])
+
+    # --- ROM fetch argument (g0, g1) -----------------------------------
+    g0, g1 = ch[0], ch[1]
+    g1p = _dx_ext_powers(g1, 4)
+    key_f = _dx_fingerprint(
+        [monty(_dx_lump(main, "pc", True)), monty(_dx_lump(main, "pc", False)),
+         monty(_dx_lump(main, "insn", True)),
+         monty(_dx_lump(main, "insn", False))], g1p)
+    key_r = _dx_fingerprint(
+        [monty(ctrl[:, c]) for c in (C_ROM_ALO, C_ROM_AHI,
+                                     C_ROM_WLO, C_ROM_WHI)], g1p)
+    # the row's class selector is one-hot, so the sum is 0 or 1
+    active = monty(1 - (sel("PAD") + sel("INIT") + sel("SYSMEM")
+                        + sel("MEMINIT") + sel("MEMFIN") + sel("REGFIN")))
+    t = _dx_term(g0, key_f, active)
+    u = _dx_term(g0, key_r, colm("rom_m"))
+    acc = _dx_cumsum(F.ext_sub(t, u))
+
+    # --- register-file argument (g2, g3) --------------------------------
+    g2, g3 = ch[2], ch[3]
+    g3p = _dx_ext_powers(g3, 5)
+    cyc = torch.arange(n, dtype=F.I64, device=dev)
+    K = N_REG_UNITS
+    rs1_f = _dx_bits(main, "insn", 15, 20)
+    rs2_f = _dx_bits(main, "insn", 20, 25)
+    rd_f = _dx_bits(main, "insn", 7, 12)
+    rd_nz = col("rd_nz")
+    maddr_lo = _dx_bits(main, "maddr", 0, 16)
+    maddr_hi = _dx_bits(main, "maddr", 16, 32)
+    is_init = sel("INIT")
+    is_sys = sel("SYSTEM")
+    wb = sum(sel(nm) for nm in WB_CLASSES)
+    w_act = wb * rd_nz + is_sys
+    # all below p: rd_f < 32, cyc < 2^21
+    w_reg = wb * rd_nz * rd_f + 10 * is_sys + is_init * cyc
+    w_act_all = w_act + is_init
+    is_rf = sel("REGFIN")
+    rf_idx = _dx_bits(main, "rf_idx", 0, 5)
+    r1_reg = rs1_f + 10 * is_sys + is_rf * rf_idx
+    r2_reg = rs2_f + 11 * is_sys
+    zero_m = torch.zeros(n, dtype=F.I32, device=dev)
+    one_m = torch.full((n,), F.mont_one(), dtype=F.I32, device=dev)
+    rs1_lo = _dx_bits(main, "rs1v", 0, 16)
+    rs1_hi = _dx_bits(main, "rs1v", 16, 32)
+    res_lo = _dx_bits(main, "res", 0, 16)
+    res_hi = _dx_bits(main, "res", 16, 32)
+
+    def fp(reg, ts, vlo, vhi, wr):
+        return _dx_fingerprint([reg, ts, vlo, vhi, wr], g3p)
+
+    t_r1 = _dx_term(g2, fp(monty(r1_reg), monty(K * cyc), monty(rs1_lo),
+                           monty(rs1_hi), zero_m),
+                    F.add(active, monty(is_rf)))
+    t_r2 = _dx_term(g2, fp(monty(r2_reg), monty(K * cyc + 1),
+                           monty(_dx_bits(main, "rs2v", 0, 16)),
+                           monty(_dx_bits(main, "rs2v", 16, 32)),
+                           zero_m), active)
+    t_w = _dx_term(g2, fp(monty(w_reg), monty(K * cyc + 2), monty(res_lo),
+                          monty(res_hi), one_m), monty(w_act_all))
+    t_a7 = _dx_term(g2, fp(monty(17 * is_sys), monty(K * cyc + 3),
+                           monty(maddr_lo), monty(maddr_hi), zero_m),
+                    selm("SYSTEM"))
+    s_terms = []
+    for u2 in range(N_REG_UNITS):
+        s_terms.append(_dx_term(
+            g2,
+            fp(colm("m_reg", u2), colm("m_cyc", u2), colm("m_vlo", u2),
+               colm("m_vhi", u2), colm("m_wr", u2)),
+            colm("m_act", u2)))
+    delta = F.ext_add(F.ext_add(t_r1, t_r2), F.ext_add(t_w, t_a7))
+    for s_t in s_terms:
+        delta = F.ext_sub(delta, s_t)
+    racc = _dx_cumsum(delta)
+
+    # --- data-memory argument (g4, g5) -----------------------------------
+    g4, g5 = ch[4], ch[5]
+    g5p = _dx_ext_powers(g5, 6)
+    is_load = sel("LOAD")
+    is_store = sel("STORE")
+    is_meminit = sel("MEMINIT")
+    is_memfin = sel("MEMFIN")
+    smc = lambda k: col("sm_str", k)
+    in_w, j_r, k_r, k_w = smc(0), smc(1), smc(2), smc(3)
+    b_r, b_w, sh_r, sh_w = smc(4), smc(5), smc(6), smc(7)
+    wa_m = monty(_dx_bits(main, "maddr", 2, 32))
+    mword_lo = _dx_bits(main, "mword", 0, 16)
+    mword_hi = _dx_bits(main, "mword", 16, 32)
+    mwnew_lo = _dx_bits(main, "mwnew", 0, 16)
+    mwnew_hi = _dx_bits(main, "mwnew", 16, 32)
+    mword_lo_m, mword_hi_m = monty(mword_lo), monty(mword_hi)
+    mwnew_lo_m, mwnew_hi_m = monty(mwnew_lo), monty(mwnew_hi)
+
+    def fpm(wav, ts, vlo, vhi, wr, kind):
+        return _dx_fingerprint([wav, ts, vlo, vhi, wr, kind], g5p)
+
+    act_r = is_load + is_store + is_memfin + j_r + k_r + b_r + sh_r
+    act_w = is_store + is_meminit + in_w + k_w + b_w + sh_w
+    mu_r = _dx_term(g4, fpm(wa_m, monty(2 * cyc), mword_lo_m, mword_hi_m,
+                            zero_m, monty(2 * is_memfin)), monty(act_r))
+    mu_w = _dx_term(g4, fpm(wa_m, monty(2 * cyc + 1), mwnew_lo_m,
+                            mwnew_hi_m, one_m, monty(is_meminit)),
+                    monty(act_w))
+    msort = []
+    for u2 in range(N_MEM_UNITS):
+        msort.append(_dx_term(
+            g4,
+            fpm(colm("ms_wa", u2), colm("ms_ts", u2), colm("ms_vlo", u2),
+                colm("ms_vhi", u2), colm("ms_wr", u2), colm("ms_kind", u2)),
+            colm("ms_act", u2)))
+    mdelta = F.ext_sub(F.ext_sub(F.ext_add(mu_r, mu_w), msort[0]), msort[1])
+    macc = _dx_cumsum(mdelta)
+
+    # --- MEMINIT/MEMFIN list-binding sums --------------------------------
+    fp2_i = _dx_fingerprint([wa_m, mwnew_lo_m, mwnew_hi_m], g5p)
+    fp2_f = _dx_fingerprint([wa_m, mword_lo_m, mword_hi_m], g5p)
+    li = _dx_term(g4, fp2_i, selm("MEMINIT"))
+    lf = _dx_term(g4, fp2_f, selm("MEMFIN"))
+    liacc = _dx_cumsum(li)
+    lfacc = _dx_cumsum(lf)
+
+    # --- RLC chains (g6): the four IO streams, then the entry and exit
+    # registers; the six scans run as one, stacked on a middle axis ------
+    g6 = ch[6]
+    g6sq = F.ext_mul(g6, g6)
+    acts = [j_r, k_r + k_w, b_r + b_w, sh_r + sh_w, is_init, is_rf]
+    los = [mword_lo, k_r * mword_lo + k_w * mwnew_lo,
+           b_r * mword_lo + b_w * mwnew_lo,
+           sh_r * mword_lo + sh_w * mwnew_lo, res_lo, rs1_lo]
+    his = [mword_hi, k_r * mword_hi + k_w * mwnew_hi,
+           b_r * mword_hi + b_w * mwnew_hi,
+           sh_r * mword_hi + sh_w * mwnew_hi, res_hi, rs1_hi]
+    val = F.ext_add(F.ext_mul_base(g6, monty(torch.stack(los, dim=1))),
+                    F.ext_from_base(monty(torch.stack(his, dim=1))))
+    chains = _dx_rlc_chain(monty(torch.stack(acts, dim=1)), val, g6sq,
+                           one_ext)                # (n, 6, 4)
+
+    return torch.cat(
+        [t, u, acc, t_r1, t_r2, t_w, t_a7,
+         s_terms[0], s_terms[1], s_terms[2], s_terms[3], racc,
+         mu_r, mu_w, msort[0], msort[1], macc,
+         li, lf, liacc, lfacc, chains.reshape(n, 24)], dim=1)

@@ -15,8 +15,23 @@ import torch
 from .hostmath import P
 
 
-def to_tensor(a, device="cpu") -> torch.Tensor:
-    """uint32/uint64/int numpy array of field elements (< p) -> int32 tensor."""
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the CUDA card unless the caller
+    names another. With ``device=None`` and no card this raises; it never
+    falls back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "zeth_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
+
+
+def to_tensor(a, device=None) -> torch.Tensor:
+    """uint32/uint64/int numpy array of field elements (< p) -> int32 tensor
+    on `device` (None: the CUDA card)."""
+    device = resolve_device(device)
     a = np.asarray(a)
     if a.dtype != np.uint32:
         a = a.astype(np.uint64)

@@ -12,9 +12,12 @@ Counterpart of the resident single-device path of
 
 Every group's LDE stays resident as an int32 tensor (the po2=20 rv32im
 main LDE is ~17 GB, which an 80 GB card holds); int64 temporaries are
-bounded by working on column or row chunks. The reference's mesh path,
-bit-packed upload, coset-streamed main group and MXU kernels have no
-counterpart here. Seals equal the reference's word for word.
+bounded by working on column or row chunks. An AIR with a
+``build_aux_device`` gets its aux group built on the device from the
+standard-form main and control tensors, which stay until that stage. The
+reference's mesh path, bit-packed upload, coset-streamed main group and MXU
+kernels have no counterpart here. Seals equal the reference's word for
+word.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 from .. import field as F
 from .. import hostmath as H
 from .. import ntt
+from ..convert import resolve_device
 from ..hash import merkle
 from ..hostmath import GENERATOR, P, RINV
 from . import fri, tape
@@ -198,15 +202,17 @@ def _lde(dev, std: bool):
     return out
 
 
-def commit_main(air: Air, main_std: np.ndarray, device="cpu"):
-    """Commit the main group exactly as prove() does; returns
-    (root (8,) np.uint64, handle) where handle can be passed back to
-    prove(main_commit=handle) to reuse the LDE and tree (used to
-    pre-commit a companion proof's trace into another transcript via
+def commit_main(air: Air, main_std: np.ndarray, device=None):
+    """Commit the main group exactly as prove() does, on `device` (None:
+    the CUDA card); returns (root (8,) np.uint64, handle) where handle =
+    (standard-form device trace, LDE, tree) can be passed back to
+    prove(main_commit=handle) to reuse them (used to pre-commit a
+    companion proof's trace into another transcript via
     prove(extra_mix=...) before the shared challenges are sampled)."""
-    lde = _lde(_upload_std(main_std, device), std=True)
+    dev = _upload_std(main_std, resolve_device(device))
+    lde = _lde(dev, std=True)
     tree = merkle.commit_rows(lde)
-    return tree.root, (lde, tree)
+    return tree.root, (dev, lde, tree)
 
 
 # -- check group -------------------------------------------------------------------
@@ -378,11 +384,12 @@ def _open_groups(ldes_t, layers_t, qs):
 
 def prove(air: Air, main_std: np.ndarray, publics: list[int],
           derived_extra=None, extra_mix=None, main_commit=None,
-          device="cpu") -> StarkProof:
-    """Prove one AIR execution on `device`. main_std: (n, main_cols)
-    standard-form trace. The seal (``proof.encode``) equals the
-    reference prover's for the same inputs."""
-    device = torch.device(device)
+          device=None) -> StarkProof:
+    """Prove one AIR execution on `device` (None: the CUDA card; without
+    one the call raises). main_std: (n, main_cols) standard-form trace.
+    The seal (``proof.encode``) equals the reference prover's for the
+    same inputs."""
+    device = resolve_device(device)
     n, c_main = main_std.shape
     assert c_main == air.main_cols and n & (n - 1) == 0
     po2 = n.bit_length() - 1
@@ -391,10 +398,17 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
     t.mix_values(np.array([po2] + [int(p) for p in publics], dtype=np.uint64))
 
     # --- commit control / main ------------------------------------------
+    # keep the standard-form device tensors when the AIR can build its aux
+    # group on the device (no host aux matrix, no second big upload)
+    device_aux = hasattr(air, "build_aux_device")
     ldes, trees, roots = {}, {}, {}
+    dev_std = {}
     for gname in ("control", "main"):
         if gname == "main" and main_commit is not None:
-            ldes["main"], trees["main"] = main_commit
+            dev, ldes["main"], trees["main"] = main_commit
+            if device_aux:
+                dev_std["main"] = dev
+            del dev
             roots["main"] = trees["main"].root
             t.mix(roots["main"])
             continue
@@ -404,6 +418,8 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
                 dev = _upload_std(src, device)
             with _Stage(f"  {gname} lde", device):
                 ldes[gname] = _lde(dev, std=True)
+            if device_aux:
+                dev_std[gname] = dev
             del dev
             with _Stage(f"  {gname} tree", device):
                 trees[gname] = merkle.commit_rows(ldes[gname])
@@ -419,14 +435,26 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
     # --- aux group -------------------------------------------------------
     sampled = np.stack([t.sample_ext() for _ in range(air.n_challenges)]) \
         if air.n_challenges else np.zeros((0, 4), dtype=np.uint64)
-    challenges = all_challenges(air, publics, sampled, derived_extra)
+    # host work: the AIR's derived scalars (for rv32im the RLCs over the
+    # segment's public IO lists) and, through derived_extra, whatever the
+    # companion proof needs under the shared challenges
+    with _Stage("derived challenges (host)", device):
+        challenges = all_challenges(air, publics, sampled, derived_extra)
     if air.aux_cols:
         with _Stage("commit aux", device):
-            with _Stage("  aux witgen (host)", device):
-                aux_std = air.build_aux(np.asarray(main_std, np.uint64),
-                                        challenges)
-            ldes["aux"] = _lde(_upload_std(aux_std, device), std=True)
-            del aux_std
+            if device_aux:
+                with _Stage("  aux witgen (device)", device):
+                    aux_m = air.build_aux_device(
+                        dev_std["main"], dev_std["control"], challenges)
+                dev_std.clear()
+                ldes["aux"] = _lde(aux_m, std=False)
+                del aux_m
+            else:
+                with _Stage("  aux witgen (host)", device):
+                    aux_std = air.build_aux(np.asarray(main_std, np.uint64),
+                                            challenges)
+                ldes["aux"] = _lde(_upload_std(aux_std, device), std=True)
+                del aux_std
             trees["aux"] = merkle.commit_rows(ldes["aux"])
             roots["aux"] = trees["aux"].root
         t.mix(roots["aux"])

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..convert import resolve_device
 from ..hash import poseidon2 as P2
 from ..hostmath import P
 
@@ -105,10 +106,11 @@ class Transcript:
     # sampled element end in `bits` zero bits; the verifier replays the
     # mix and checks. Sampled before the FRI query indices.
 
-    def grind(self, bits: int, device="cpu") -> int:
-        """Find, mix, and return a PoW nonce (batched search on `device`)."""
+    def grind(self, bits: int, device=None) -> int:
+        """Find, mix, and return a PoW nonce (batched search on `device`;
+        None: the CUDA card)."""
         mask = (1 << bits) - 1
-        nonce = grind_search(self.pool, bits, torch.device(device))
+        nonce = grind_search(self.pool, bits, resolve_device(device))
         self.mix_values(np.array([nonce], dtype=np.uint64))
         v = self.sample()
         assert v & mask == 0
