@@ -6,22 +6,26 @@ The main paths are what bench.py measures for the JAX package: one
 halting ``spin`` segment, and the first segment of the stateless-client
 (EVM) guest validating the smaller fixture block, each executed by the
 C++ executor, proved with its paging companion proof by
-``zeth_tpu_torch.circuits.rv32im`` and verified. Phases, each of which
-exits non-zero on failure:
+``zeth_tpu_torch.circuits.rv32im`` and verified; then the block's
+accelerator batches, and receipts of small guests through
+``zeth_tpu_torch.zkvm``. Phases, each of which exits non-zero on failure:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every CUDA kernel of the path from the sources in the checkout
    (one nvcc per source, all started together);
 3. kernels: each kernel against its plain PyTorch version on the card,
    bit for bit, at the main path's shapes, with both times and the
-   least time the card could take for the same work;
+   least time the card could take for the same work; the leaf kernel
+   also hashes the bigint batch's claims row (one row of 2,479,200
+   limbs, one thread), timed alone;
 4. oracle: a small spin segment proved on the card must hash to the seal
    digests in tests/fixtures/torch_port_seals.json (the CPU seals, which
    tests/test_torch_rv32im.py holds equal to the JAX package's);
 5. spin: a po2=18 spin segment and its paging proof, untimed inside (as
    a user runs it), the kernels' launch counts read around this run
-   alone, both proofs verified; then the po2=20 spin segment proved once
-   with the prover's stage timers on, for the breakdown only;
+   alone, verified by ``verify_segments`` against a ``ReceiptClaim`` as
+   bench.py verifies it; then the po2=20 spin segment proved once with
+   the prover's stage timers on, for the breakdown only;
 6. EVM front end: the guest ELF compiled from the checkout's C sources,
    the fixture block encoded, the guest executed with its trace;
 7. aux: ``build_aux_device`` on the card against the host ``build_aux``
@@ -29,7 +33,17 @@ exits non-zero on failure:
 8. EVM: ``prove_segments`` of that segment at po2=20, once untimed (launch
    counts and peak memory read around it) and once with the stage
    timers, same seals; both proofs verified as bench.py verifies them;
-9. a ``{"kernels": [...]}`` line, the card line, and the final
+9. accel: the block's keccak, bigint and sha batches (every accelerator
+   call of the execution, built as ``zkvm.LocalProver`` builds them),
+   each proved on the card untimed (launches, peak memory) and once with
+   the stage timers (same seal), verified, its claims digest held equal
+   to the digest of the verified IO; segment 0's bound IO must be a
+   prefix of the proof-bound streams (the resolve); a flipped keccak
+   seal word is rejected; small batches must hash to the fixture digests;
+10. receipt: ``zkvm.LocalProver`` and ``Receipt.verify`` on four guests
+   (echo, keccak, bigint, sha), each with one tamper that must be
+   rejected;
+11. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, ...}`` line.
 
 The script needs a CUDA card: without one it exits non-zero before any
@@ -69,9 +83,16 @@ AUX_BLOCKS = ["t", "u", "acc", "t_r1", "t_r2", "t_w", "t_a7", "s0", "s1",
               "macc", "li", "lf", "liacc", "lfacc", "r_j", "r_k", "r_b",
               "r_sh", "r_re", "r_rx"]
 
-# the Poseidon2 leaf kernel's shapes: edge cases, then the rv32im main
-# group at po2=10 and at po2=20 (2^22 LDE rows x 1009 columns)
-LEAF_SHAPES = [(1, 3), (7, 16), (1000, 37), (4096, 1009), (1 << 22, 1009)]
+# the Poseidon2 leaf kernel's shapes as (rows, cols, kernel calls, plain
+# calls) timed: edge cases, the rv32im main group at po2=10, the keccak
+# and bigint batches' main LDEs, one long row (4,096 permutations one
+# after another), and the rv32im main group at po2=20 (the headline)
+LEAF_SHAPES = [(1, 3, 20, 3), (7, 16, 20, 3), (1000, 37, 20, 3),
+               (4096, 1009, 20, 3), (1 << 14, 4161, 5, 1),
+               (1 << 17, 3410, 3, 1), (1, 65536, 3, 1),
+               (1 << 22, 1009, 3, 1)]
+# the bigint batch's claims row: 25,825 ops x 96 limbs
+CLAIMS_ROW = 25825 * 96
 
 KERNELS = {
     "poseidon2_leaf": {
@@ -127,56 +148,84 @@ def leaf_bound_ms(rows: int, cols: int) -> tuple:
         "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def check_leaf_kernel(dev, P) -> dict:
-    """The leaf kernel against hash_rows at every shape; times at each."""
+def check_leaf_kernel(dev, card, P) -> dict:
+    """The leaf kernel against hash_rows at every shape; times at each.
+    A single-row launch is one thread hashing one permutation after
+    another: it is bound by latency, and no throughput bound is given."""
     from zeth_tpu_torch.hash import poseidon2 as P2
     gen = torch.Generator(device=dev)
     gen.manual_seed(20)
-    worst, main = 0, None
-    for shape in LEAF_SHAPES:
-        rows = torch.randint(0, P, shape, dtype=torch.int32, device=dev,
-                             generator=gen)
-        big = shape[0] >= (1 << 20)
-        # warm both up; the plain version's set-up is done before the big
-        # shape, whose plain call takes seconds
+    worst, shapes = 0, []
+    for rows_n, cols, reps, plain_reps in LEAF_SHAPES:
+        rows = torch.randint(0, P, (rows_n, cols), dtype=torch.int32,
+                             device=dev, generator=gen)
+        # warm both up, except the plain version where one call takes
+        # seconds (it has nothing to compile)
         P2.leaf_hash(rows)
-        if not big:
+        if plain_reps > 1:
             P2.hash_rows(rows)
         torch.cuda.synchronize()
-        got, ms = cuda_ms(lambda: P2.leaf_hash(rows), 3 if big else 20)
-        want, plain_ms = cuda_ms(lambda: P2.hash_rows(rows), 1 if big else 3)
+        got, ms = cuda_ms(lambda: P2.leaf_hash(rows), reps)
+        want, plain_ms = cuda_ms(lambda: P2.hash_rows(rows), plain_reps)
         err = int((got.long() - want.long()).abs().max())
-        if got.shape != (shape[0], 8) or not torch.equal(got, want):
+        if got.shape != (rows_n, 8) or not torch.equal(got, want):
             raise SystemExit(f"poseidon2_leaf disagrees with hash_rows at "
-                             f"{shape}: max_abs_err {err}")
+                             f"{(rows_n, cols)}: max_abs_err {err}")
         worst = max(worst, err)
-        log(f"[kernels] poseidon2_leaf {shape}: equal, kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms")
-        if big:
-            main = (ms, plain_ms)
+        bound, by = leaf_bound_ms(rows_n, cols) if rows_n > 1 \
+            else (None, "latency")
+        shapes.append({"rows": rows_n, "cols": cols, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": by})
+        log(f"{card} | [kernels] poseidon2_leaf ({rows_n}, {cols}): equal, "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            + (f"{bound:.3f} ms by {by}" if bound is not None
+               else "none (one thread: latency)"))
         del rows, got, want
         torch.cuda.empty_cache()
-    bound, by = leaf_bound_ms(*LEAF_SHAPES[-1])
+    # the bigint claims row: its digest is held by the accel phase
+    row = torch.randint(0, P, (1, CLAIMS_ROW), dtype=torch.int32,
+                        device=dev, generator=gen)
+    P2.leaf_hash(row)
+    _, ms = cuda_ms(lambda: P2.leaf_hash(row), 2)
+    shapes.append({"rows": 1, "cols": CLAIMS_ROW, "ms": ms,
+                   "plain_ms": None, "bound_ms": None,
+                   "bound_by": "latency"})
+    log(f"{card} | [kernels] poseidon2_leaf (1, {CLAIMS_ROW}): kernel "
+        f"{ms:.3f} ms for {-(-CLAIMS_ROW // 16)} permutations on one "
+        f"thread (plain version not run: one permutation after another)")
+    del row
+    main = shapes[len(LEAF_SHAPES) - 1]
     # no single PyTorch call computes a Poseidon2 sponge
-    return {"max_abs_err": worst, "ms": main[0], "plain_ms": main[1],
-            "bound_ms": bound, "bound_by": by, "library_ms": None}
+    return {"max_abs_err": worst, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "shapes": shapes}
 
 
 def spin_segment(spin_iters: int, segment_po2: int):
-    from zeth_tpu_torch.executor import Executor, guests, load_image
+    """(segment, image addrs, image words, entry pc, ReceiptClaim) of a
+    spin guest that halts in one segment."""
+    from zeth_tpu_torch.executor import (Executor, compute_image_id, guests,
+                                         load_image)
+    from zeth_tpu_torch.zkvm import ReceiptClaim
     elf = guests.spin(spin_iters)
     entry, ia, iw = load_image(elf)
     res = Executor(elf, segment_po2=segment_po2, trace=True).run()
     if len(res.segments) != 1:
         raise SystemExit(f"spin({spin_iters}) gave {len(res.segments)} "
                          "segments, expected one halting segment")
-    return res.segments[0], ia, iw
+    claim = ReceiptClaim(image_id=compute_image_id(elf),
+                         journal_digest=hashlib.sha256(res.journal).digest(),
+                         exit_code=res.exit_code)
+    return res.segments[0], ia, iw, entry, claim
 
 
-def verify_pair(seal, pg_seal, ia, iw) -> tuple:
+def verify_pair(dev, seal, pg_seal, ia, iw) -> tuple:
     """Both proofs with the port's verifier, as bench.py checks an EVM
     segment: the paging proof, the rv32im proof bound to it, then g4.
-    Returns the seconds of the two verifications."""
+    The control roots are recomputed on the card. Returns the seconds of
+    the two verifications."""
     from zeth_tpu_torch.circuits.paging import PagingAir
     from zeth_tpu_torch.circuits.rv32im import Rv32imAir
     from zeth_tpu_torch.zkp import proof as proof_mod
@@ -185,12 +234,12 @@ def verify_pair(seal, pg_seal, ia, iw) -> tuple:
     pg_pubs = [int(p) for p in pg_proof.publics]
     ppg = PagingAir.parse_publics(pg_pubs)
     t0 = time.time()
-    verifier.verify(PagingAir(), pg_proof, pg_pubs)
+    verifier.verify(PagingAir(), pg_proof, pg_pubs, device=dev)
     t1 = time.time()
     sampled = verifier.verify(
         Rv32imAir(ia, iw), proof, [int(p) for p in proof.publics],
         derived_extra={"d0": ppg["d0"], "d1": ppg["d1"]},
-        extra_mix=pg_proof.roots["main"])
+        extra_mix=pg_proof.roots["main"], device=dev)
     if not (np.asarray(sampled[4], np.uint64) == ppg["g4"]).all():
         raise SystemExit("paging proof's g4 differs from the rv32im proof's")
     return t1 - t0, time.time() - t1
@@ -198,7 +247,8 @@ def verify_pair(seal, pg_seal, ia, iw) -> tuple:
 
 def evm_segment():
     """The stateless-client guest on the smaller fixture block, as
-    bench.py runs it: (first segment, image addrs, image words, result)."""
+    bench.py runs it: (first segment, image addrs, image words, result,
+    executor). The executor holds the accelerator calls' inputs."""
     from zeth_tpu_torch.app import guest_input
     from zeth_tpu_torch.app.chainspec import MAINNET
     from zeth_tpu_torch.app.host import StatelessInput
@@ -221,7 +271,8 @@ def evm_segment():
     _, ia, iw = load_image(elf)
     raw = guest_input.encode_guest_input(inp, MAINNET.chain_id)
     t0 = time.time()
-    res = Executor(elf, input_bytes=raw, segment_po2=PO2, trace=True).run()
+    ex = Executor(elf, input_bytes=raw, segment_po2=PO2, trace=True)
+    res = ex.run()
     if res.exit_code != 0 or res.journal != inp.block.hash():
         raise SystemExit("the guest did not validate the fixture block")
     log(f"[evm] block {os.path.basename(paths[0])[6:16]}: input "
@@ -230,7 +281,7 @@ def evm_segment():
         f"{res.keccak_calls} keccak / {res.bigint_calls} bigint / "
         f"{res.sha_calls} sha calls, journal = block hash, executed with "
         f"trace in {time.time() - t0:.1f} s")
-    return res.segments[0], ia, iw, res
+    return res.segments[0], ia, iw, res, ex
 
 
 def check_aux(dev, card, seg, ia, iw) -> None:
@@ -318,6 +369,169 @@ def same_seals(a, b) -> bool:
     return all(np.array_equal(x, y) for x, y in zip(a, b))
 
 
+def fixture_batches(fx) -> dict:
+    """The fixture's small accelerator batches, as prove_batch takes them
+    (the same construction as tests/test_torch_accel_airs.py)."""
+    k, b, h = fx["keccak"], fx["bigint"], fx["sha"]
+    rng = np.random.default_rng(h["seed"])
+    return {
+        "keccak": (np.random.default_rng(k["seed"]).integers(
+            0, 2**64, (k["nperm"], 25), dtype=np.uint64),),
+        "bigint": ([tuple(op) for op in b["ops"]],),
+        "sha": (rng.integers(0, 2**32, (h["nc"], 8), dtype=np.uint64),
+                rng.integers(0, 2**32, (h["nc"], 16), dtype=np.uint64)),
+    }
+
+
+def accel_phase(dev, card, ex, seg0_seal, fx) -> dict:
+    """The block's accelerator batches proved and verified on the card,
+    and linked to segment 0's bound IO. Returns the leaf launches of the
+    three untimed proves."""
+    from zeth_tpu_torch import kernels, zkvm
+    from zeth_tpu_torch.circuits import rv32im
+    from zeth_tpu_torch.zkp import proof as proof_mod
+    from zeth_tpu_torch.zkp import prover
+    batches = zkvm.accelerator_batches(ex)
+    if sorted(batches) != ["bigint", "keccak", "sha"]:
+        raise SystemExit(f"the block made calls of {sorted(batches)} only")
+    prover.TIMING = False
+    kernels.reset_counts()
+    out = {}
+    for kind, args in batches.items():
+        mod = zkvm.accelerator_module(kind)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        seal, digest = mod.prove_batch(*args, device=dev)
+        torch.cuda.synchronize()
+        prove_s = time.time() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        pf = proof_mod.decode(seal)
+        out[kind] = (seal, digest)
+        log(f"{card} | [accel] {kind}: {len(args[0])} calls, po2={pf.po2}, "
+            f"{pf.openings['main'].rows.shape[1]} main / "
+            f"{pf.openings['control'].rows.shape[1]} control columns, "
+            f"{len(pf.publics)} publics, prove_batch {prove_s:.3f} s, peak "
+            f"device memory {peak / 2**30:.2f} GiB, seal {seal.shape[0]} "
+            f"words ({seal.shape[0] * 4 / 2**20:.2f} MiB)")
+    launches = dict(kernels.LAUNCHES)
+    require_launches(launches, "accel")
+    log(f"{card} | [accel] launches of the three proves {launches}")
+    for kind, args in batches.items():
+        mod = zkvm.accelerator_module(kind)
+        staged = staged_prove(card, f"{kind}-stage",
+                              lambda: mod.prove_batch(*args, device=dev))
+        if not np.array_equal(staged[0], out[kind][0]):
+            raise SystemExit(f"the stage-timed {kind} prove gave another seal")
+    words = {}
+    for kind in batches:
+        mod = zkvm.accelerator_module(kind)
+        seal, digest = out[kind]
+        t0 = time.time()
+        io = mod.verify_batch(seal, dev)
+        verify_s = time.time() - t0
+        t0 = time.time()
+        want = mod.claims_digest(io, dev)
+        torch.cuda.synchronize()
+        digest_s = time.time() - t0
+        if not np.array_equal(want, digest):
+            raise SystemExit(f"{kind}: prove_batch's claims digest differs "
+                             "from the digest of the verified IO")
+        words[kind] = zkvm.accelerator_words(kind, io)
+        log(f"{card} | [accel] {kind}: verify_batch {verify_s:.3f} s, "
+            f"claims digest of the verified IO {digest_s:.3f} s, equal to "
+            f"prove_batch's")
+    # the resolve of the segment the card proved: its bound IO is a
+    # prefix of the proof-bound streams
+    pp = rv32im.parse_publics(proof_mod.decode(seg0_seal).publics)
+    zkvm._check_accelerator_io(pp, words["keccak"], words["bigint"],
+                               words["sha"])
+    log(f"{card} | [accel] segment 0 binds {len(pp['keccak_words']) // 100} "
+        f"keccak / {len(pp['bigint_words']) // 48} bigint / "
+        f"{len(pp['sha_words']) // 32} sha calls: a prefix of the proof-bound "
+        f"streams ({len(words['keccak']) // 100} / "
+        f"{len(words['bigint']) // 48} / {len(words['sha']) // 32})")
+    bad = out["keccak"][0].copy()
+    bad[bad.shape[0] // 2] ^= 1
+    try:
+        zkvm._resolve_accelerators(zkvm.SegmentsInner(keccak_seal=bad), dev)
+    except zkvm.VerificationError as e:
+        log(f"[accel] keccak seal with one flipped word rejected: {e}")
+    else:
+        raise SystemExit("a keccak seal with a flipped word verified")
+    for kind, args in fixture_batches(fx).items():
+        seal, _ = zkvm.accelerator_module(kind).prove_batch(*args, device=dev)
+        if sha(seal) != fx[kind]["seal_sha256"]:
+            raise SystemExit(f"small {kind} seal differs from the fixture")
+    log("[accel] small keccak, bigint and sha seals equal the fixture "
+        "digests")
+    return launches
+
+
+def receipt_guests() -> list:
+    """(name, elf, input, tamper, expected journal or None) of the
+    receipt phase's guests."""
+    from zeth_tpu_torch.executor import guests
+    from zeth_tpu_torch.hash.keccak import permute_np
+    from zeth_tpu_torch.hash.sha256 import IV, pad_message
+    a, b, m = 1234567, 7654321, (1 << 31) - 1
+    state = np.zeros((1, 25), np.uint64)
+    for _ in range(2):
+        state = permute_np(state)
+    return [
+        ("echo_input(16)", guests.echo_input(16), bytes(range(16)), "image",
+         bytes(range(16))),
+        ("keccak_guest(2)", guests.keccak_guest(2), b"", "keccak",
+         state[0, :1].astype("<u8").tobytes()),
+        ("bigint_guest(reps=2)", guests.bigint_guest(a, b, m, reps=2), b"",
+         "bigint", (a * b % m * b % m).to_bytes(48, "little")),
+        ("sha256_guest(abc)", guests.sha256_guest(
+            [int(w) for w in IV], [int(w) for w in pad_message(b"abc")[0]]),
+         b"", "sha", np.frombuffer(hashlib.sha256(b"abc").digest(), ">u4")
+         .astype("<u4").tobytes()),
+    ]
+
+
+def receipt_phase(dev, card) -> dict:
+    """LocalProver + Receipt.verify on the card for four guests, each with
+    one tamper that must be rejected. Returns the phase's leaf launches."""
+    from zeth_tpu_torch import kernels, zkvm
+    from zeth_tpu_torch.executor import compute_image_id, guests
+    kernels.reset_counts()
+    for name, elf, inp, tamper, journal in receipt_guests():
+        env = zkvm.ExecutorEnv.builder().write_slice(inp).build()
+        t0 = time.time()
+        info = zkvm.LocalProver(device=dev).prove(env, elf)
+        torch.cuda.synchronize()
+        prove_s = time.time() - t0
+        receipt = info.receipt
+        if receipt.journal != journal:
+            raise SystemExit(f"{name}: unexpected journal")
+        image_id = compute_image_id(elf)
+        t0 = time.time()
+        receipt.verify(image_id, device=dev)
+        verify_s = time.time() - t0
+        if tamper == "image":
+            image_id = compute_image_id(guests.echo_input(17))
+        else:
+            attr = f"{tamper}_seal"
+            bad = getattr(receipt.inner, attr).copy()
+            bad[bad.shape[0] // 2] ^= 1
+            setattr(receipt.inner, attr, bad)
+        try:
+            receipt.verify(image_id, device=dev)
+        except zkvm.VerificationError as e:
+            why = str(e)
+        else:
+            raise SystemExit(f"{name}: a tampered receipt verified")
+        log(f"{card} | [receipt] {name}: {info.stats.total_cycles} cycles, "
+            f"{info.stats.segments} segment(s), prove {prove_s:.3f} s, "
+            f"verify {verify_s:.3f} s; tampered {tamper} rejected: {why}")
+    launches = dict(kernels.LAUNCHES)
+    require_launches(launches, "receipt")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the "
@@ -327,6 +541,7 @@ def main() -> None:
     from zeth_tpu_torch.circuits import rv32im
     from zeth_tpu_torch.hostmath import P
     from zeth_tpu_torch.zkp import prover
+    t_start = time.time()
 
     # 1. device
     card = card_line()
@@ -341,12 +556,13 @@ def main() -> None:
     log(f"[build] {len(logs)} kernel(s) in {time.time() - t0:.1f} s")
 
     # 3. kernels against their plain versions
-    results = {"poseidon2_leaf": check_leaf_kernel(dev, P)}
+    results = {"poseidon2_leaf": check_leaf_kernel(dev, card, P)}
 
     # 4. the small-po2 oracle
     with open(FIXTURE) as f:
-        fx = json.load(f)["spin"]
-    seg, ia, iw = spin_segment(fx["spin_iters"], fx["segment_po2"])
+        fixture = json.load(f)
+    fx = fixture["spin"]
+    seg, ia, iw, _, _ = spin_segment(fx["spin_iters"], fx["segment_po2"])
     t0 = time.time()
     seal, pg_seal = rv32im.prove_segment(seg, ia, iw, device=dev)
     torch.cuda.synchronize()
@@ -357,8 +573,9 @@ def main() -> None:
 
     # 5. the spin path: one halting segment (bench.py's guest sizing) at
     # SPIN_PO2, proved as a user calls it, with no stage timer
-    # synchronising, and verified
-    seg, ia, iw = spin_segment(((1 << SPIN_PO2) - 4096) * 3 // 2, SPIN_PO2)
+    # synchronising, and verified as bench.py verifies it
+    seg, ia, iw, entry, claim = spin_segment(
+        ((1 << SPIN_PO2) - 4096) * 3 // 2, SPIN_PO2)
     cycles = int(seg.trace.shape[0])
     prover.TIMING = False
     kernels.reset_counts()
@@ -368,13 +585,16 @@ def main() -> None:
     prove_s = time.time() - t0
     spin_launches = dict(kernels.LAUNCHES)
     require_launches(spin_launches, "spin")
-    pg_s, rv_s = verify_pair(seal, pg_seal, ia, iw)
+    t0 = time.time()
+    rv32im.verify_segments([seal], [pg_seal], claim, ia, iw, entry,
+                           device=dev)
+    verify_s = time.time() - t0
     log(f"{card} | [spin] po2={SPIN_PO2}: {cycles} cycles, prove_segment "
-        f"{prove_s:.3f} s ({cycles / prove_s / 1e6:.4f} Mcycles/s), verify "
-        f"{pg_s:.3f} s paging + {rv_s:.3f} s rv32im, launches "
-        f"{spin_launches}")
+        f"{prove_s:.3f} s ({cycles / prove_s / 1e6:.4f} Mcycles/s), "
+        f"verify_segments {verify_s:.3f} s (both STARKs and the chain "
+        f"checks), launches {spin_launches}")
     # the stage breakdown at the full depth, comparable to earlier runs
-    seg, ia, iw = spin_segment(((1 << PO2) - 4096) * 3 // 2, PO2)
+    seg, ia, iw, _, _ = spin_segment(((1 << PO2) - 4096) * 3 // 2, PO2)
     log(f"{card} | [spin-stage] po2={PO2}: {int(seg.trace.shape[0])} cycles")
     staged_prove(card, "spin-stage",
                  lambda: rv32im.prove_segment(seg, ia, iw, device=dev))
@@ -382,7 +602,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 6. the EVM segment's front end
-    seg, ia, iw, res = evm_segment()
+    seg, ia, iw, res, ex = evm_segment()
     cycles = int(seg.trace.shape[0])
     del res
 
@@ -404,7 +624,9 @@ def main() -> None:
         lambda: rv32im.prove_segments([seg], ia, iw, device=dev))
     if not (same_seals(staged[0], seals) and same_seals(staged[1], pg_seals)):
         raise SystemExit("the stage-timed prove gave other seals")
-    pg_s, rv_s = verify_pair(seals[0], pg_seals[0], ia, iw)
+    del staged, seg
+    torch.cuda.empty_cache()
+    pg_s, rv_s = verify_pair(dev, seals[0], pg_seals[0], ia, iw)
     words = seals[0].shape[0] + pg_seals[0].shape[0]
     log(f"{card} | [evm] po2={PO2}: segment 0, {cycles} cycles, "
         f"prove_segments {prove_s:.3f} s "
@@ -413,11 +635,22 @@ def main() -> None:
         f"{pg_seals[0].shape[0]} words ({words * 4 / 1024:.1f} KiB), "
         f"peak device memory {peak / 2**30:.2f} GiB, launches {launches}")
 
-    # 9. results
+    # 9. the block's accelerator batches, and the resolve of segment 0
+    accel_launches = accel_phase(dev, card, ex, seals[0], fixture)
+    del ex, seals, pg_seals
+    torch.cuda.empty_cache()
+
+    # 10. receipts through the zkvm API
+    receipt_launches = receipt_phase(dev, card)
+
+    # 11. results
+    log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=name, **KERNELS[name], launches=launches[name],
              launches_by_path={"spin": spin_launches[name],
-                               "evm": launches[name]},
+                               "evm": launches[name],
+                               "accel": accel_launches[name],
+                               "receipt": receipt_launches[name]},
              **results[name]) for name in kernels.NAMES]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

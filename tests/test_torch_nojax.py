@@ -54,7 +54,9 @@ def test_every_port_module_imports_without_jax():
     assert len(names) >= 38
     for name in ("hash.keccak", "app.rlp", "app.chainspec", "app.trie",
                  "app.state", "app.txs", "app.host", "app.kzg",
-                 "app.bls12381", "app.guest_input", "cc", "cc.compiler"):
+                 "app.bls12381", "app.guest_input", "cc", "cc.compiler",
+                 "hash.sha256", "circuits.keccak", "circuits.bigint2",
+                 "circuits.sha256", "zkvm"):
         assert "zeth_tpu_torch." + name in names
 
 
@@ -90,7 +92,7 @@ def test_toy_prove_and_verify_without_jax():
         air = SquareChainAir()
         main, pubs = SquareChainAir.witgen(5, x0=3)
         seal = proof.encode(prover.prove(air, main, pubs, device="cpu"))
-        verifier.verify(air, proof.decode(seal), pubs)
+        verifier.verify(air, proof.decode(seal), pubs, device="cpu")
         print("verified", seal.shape[0])
     """)
     assert "verified" in out
@@ -100,11 +102,11 @@ def _default_device_calls():
     """name -> call of a repaired entry point with no ``device``."""
     import numpy as np
 
-    from zeth_tpu_torch import convert
-    from zeth_tpu_torch.circuits import rv32im
+    from zeth_tpu_torch import convert, zkvm
+    from zeth_tpu_torch.circuits import bigint2, keccak, rv32im, sha256
     from zeth_tpu_torch.circuits.toy import SquareChainAir
     from zeth_tpu_torch.executor import Executor, guests, load_image
-    from zeth_tpu_torch.zkp import prover
+    from zeth_tpu_torch.zkp import prover, verifier
     from zeth_tpu_torch.zkp.transcript import Transcript
 
     def toy():
@@ -124,12 +126,24 @@ def _default_device_calls():
         "prove_segments": lambda: (lambda s, ia, iw: rv32im.prove_segments(
             [s], ia, iw))(*segment()),
         "prove_segment": lambda: rv32im.prove_segment(*segment()),
+        "keccak.prove_batch": lambda: keccak.prove_batch(
+            np.zeros((1, 25), np.uint64)),
+        "bigint2.prove_batch": lambda: bigint2.prove_batch([(3, 5, 7)]),
+        "sha256.prove_batch": lambda: sha256.prove_batch(
+            np.zeros((1, 8), np.uint64), np.zeros((1, 16), np.uint64)),
+        "LocalProver.prove": lambda: zkvm.LocalProver().prove(
+            zkvm.ExecutorEnv.builder().build(), guests.sum_loop(5)),
+        # the device is resolved before the proof is read
+        "verify": lambda: verifier.verify(SquareChainAir(), None, []),
     }
 
 
 @pytest.mark.parametrize("entry", ["to_tensor", "grind", "commit_main",
                                    "prove", "prove_segments",
-                                   "prove_segment"])
+                                   "prove_segment", "keccak.prove_batch",
+                                   "bigint2.prove_batch",
+                                   "sha256.prove_batch",
+                                   "LocalProver.prove", "verify"])
 def test_entry_point_without_device_raises_without_cuda(monkeypatch, entry):
     """The entry points run on the card by default; where there is none
     they raise and do not carry on on the CPU."""

@@ -84,12 +84,12 @@ def test_port_verifier_accepts_and_rejects(name):
     seal, pubs = _port(name)
     air = _airs(name)[0]
     proof = TPF.decode(seal)
-    TV.verify(air, proof, pubs)
+    TV.verify(air, proof, pubs, device="cpu")
     np.testing.assert_array_equal(TPF.encode(proof), seal)
     bad = TPF.decode(seal)
     bad.taps[0, 0] = (int(bad.taps[0, 0]) + 1) % P
     with pytest.raises(TV.VerificationError):
-        TV.verify(air, bad, pubs)
+        TV.verify(air, bad, pubs, device="cpu")
 
 
 @pytest.mark.parametrize("name", AIRS)

@@ -198,11 +198,12 @@ def test_port_verifier_accepts_segment():
     seal, pg_seal = _port_seals()
     proof, pg_proof = TPF.decode(seal), TPF.decode(pg_seal)
     ppg = TPG.PagingAir.parse_publics([int(p) for p in pg_proof.publics])
-    TV.verify(TPG.PagingAir(), pg_proof, [int(p) for p in pg_proof.publics])
+    TV.verify(TPG.PagingAir(), pg_proof, [int(p) for p in pg_proof.publics],
+              device="cpu")
     sampled = TV.verify(TRV.Rv32imAir(ia, iw), proof,
                         [int(p) for p in proof.publics],
                         derived_extra={"d0": ppg["d0"], "d1": ppg["d1"]},
-                        extra_mix=pg_proof.roots["main"])
+                        extra_mix=pg_proof.roots["main"], device="cpu")
     np.testing.assert_array_equal(np.asarray(sampled[4], np.uint64),
                                   ppg["g4"])
 

@@ -9,7 +9,11 @@ reference's module names, so each module's counterpart is easy to find:
 - ``kernels``                hand-written CUDA kernels and their build
 - ``zkp``                    DEEP-ALI + FRI prover (device) and verifier
                              (host numpy)
-- ``circuits``               rv32im, paging and toy AIRs (host copies)
+- ``circuits``               rv32im, paging, keccak, bigint2, sha256 and
+                             toy AIRs (host copies), the segment prover
+                             and the chain verifier
+- ``zkvm``                   the host API: executor env, LocalProver,
+                             receipts and their verification
 - ``executor``               the C++ RV32IM emulator and its guests (copy)
 - ``app``, ``cc``, ``guest`` the stateless-client guest's front end: input
                              model and encoder, the C compiler, the guest's
@@ -24,7 +28,8 @@ Field elements are ``torch.int32`` tensors (p = 2013265921 < 2^31) in
 Montgomery form with R = 2^32, so every intermediate array equals the
 reference's uint32 array bit for bit. Products are formed in int64. Every
 device function takes its tensors' device. The entry points (``prove``,
-``commit_main``, ``prove_segments``, ``prove_segment``, ``Transcript.grind``,
+``commit_main``, ``prove_segments``, ``prove_segment``, ``prove_batch``,
+the verifiers, ``zkvm.LocalProver``, ``Transcript.grind``,
 ``convert.to_tensor``) run on the CUDA card unless the caller passes a
 device, and raise where there is no card (``convert.resolve_device``).
 """

@@ -6,9 +6,8 @@ the publics helpers are a jax-free copy of the reference's host code;
 ``prove_segments`` / ``prove_segment`` run on the port's torch prover,
 which builds the aux group on its device with ``build_aux_device`` (the
 ``_dx_*`` helpers and ``_build_aux`` at the end of this module, a plain
-torch composition like the reference's XLA program). The reference's chain
-verifier (``verify_segments`` / ``verify_chain``) has no counterpart here
-yet.
+torch composition like the reference's XLA program). The chain verifier
+(``verify_segments`` / ``verify_chain``) is a copy of the reference's.
 
 TPU-native re-design of risc0-circuit-rv32im's role (SURVEY.md §2.2):
 the C++ executor (zeth_tpu_torch.executor) emits per-cycle trace records;
@@ -55,6 +54,7 @@ from ..convert import resolve_device
 from ..hostmath import P
 from ..zkp import proof as proof_mod
 from ..zkp import prover as prover_mod
+from ..zkp import verifier as verifier_mod
 from ..zkp.air import Air
 
 # instruction classes (selector layout); PAD = rows after halt
@@ -2552,6 +2552,205 @@ def prove_segment(seg, image_addrs, image_words, device=None):
     returns (seal, paging_seal)."""
     seals, pg_seals = prove_segments([seg], image_addrs, image_words, device)
     return seals[0], pg_seals[0]
+
+
+def verify_chain(publics_list, claim, image_addrs, image_words,
+                 entry_pc: int, paging_publics_list=None,
+                 keccak_checked: bool = False,
+                 bigint_checked: bool = False,
+                 sha_checked: bool = False) -> dict:
+    """Chain checks over per-segment publics (no STARK verification).
+
+    Checks: pc continuity; register continuity (entry/exit register
+    lists); RAM continuity via the paging proofs' memory page-tree
+    roots (segment 0's pre_root is the image's page root; each
+    post_root is the next segment's pre_root — the reference's
+    MemoryImage digest chaining); keccak/bigint accelerator IO
+    (recomputed host-side from the bound operands unless `*_checked` —
+    i.e. an accelerator proof covers it, the resolve path); and, across
+    the chain: exactly the final segment halts, with the claim's exit
+    code, and the concatenated journal words hash to the claim's journal
+    digest (the reference's journal commitment,
+    guests/stateless-client/src/lib.rs:33).
+
+    paging_publics_list: per-segment paging-proof publics (the caller —
+    verify_segments / the receipt path — must have STARK-verified the
+    paging seals and their cross-binding to the rv32im proofs).
+    """
+    import hashlib
+
+    from ..executor import image_page_root
+    from ..hash.keccak import permute_np as keccak_permute
+    from ..zkvm import VerificationError
+    from .paging import PagingAir
+    expect_pc = int(entry_pc)
+    if not publics_list:
+        raise VerificationError("no segments")
+    if paging_publics_list is None or \
+            len(paging_publics_list) != len(publics_list):
+        raise VerificationError("paging publics missing for the chain")
+    expect_root = image_page_root(image_addrs, image_words)
+    expect_regs = [0] * 32    # machine registers start zeroed
+    journal_words: list[int] = []
+    keccak_words: list[int] = []
+    bigint_words: list[int] = []
+    sha_words: list[int] = []
+    for i, pubs in enumerate(publics_list):
+        try:
+            pp = parse_publics([int(p) for p in pubs])
+        except ValueError as e:
+            raise VerificationError(f"segment {i}: {e}") from e
+        if pp["entry_pc"] != expect_pc:
+            raise VerificationError(f"segment {i}: entry pc mismatch")
+        # register continuity: the segment's entry registers must match
+        # the previous segment's exit registers (zeros for segment 0)
+        if pp["entry_regs"] != expect_regs:
+            raise VerificationError(
+                f"segment {i}: entry registers do not match the previous "
+                "segment's exit registers")
+        expect_regs = pp["exit_regs"]
+        last = i == len(publics_list) - 1
+        if bool(pp["halted"]) != last:
+            raise VerificationError(
+                f"segment {i}: halt flag mismatch (only the final segment "
+                "halts)")
+        if last and pp["exit_code"] != int(claim.exit_code):
+            raise VerificationError("exit code does not match claim")
+        # RAM continuity: the paging proofs' page-tree roots chain from
+        # the image root through every segment
+        try:
+            ppg = PagingAir.parse_publics(paging_publics_list[i])
+        except ValueError as e:
+            raise VerificationError(f"segment {i} paging: {e}") from e
+        if not (ppg["pre_root"] == expect_root).all():
+            raise VerificationError(
+                f"segment {i}: paging pre-root does not chain")
+        expect_root = ppg["post_root"]
+        # keccak accelerator IO: recompute f[1600] over the bound states
+        # unless an accelerator proof discharges them (resolve)
+        kw = pp["keccak_words"]
+        if len(kw) % 100:
+            raise VerificationError(f"segment {i}: bad keccak IO length")
+        if not keccak_checked:
+            for c in range(0, len(kw), 100):
+                pre = np.zeros(25, dtype=np.uint64)
+                post = np.zeros(25, dtype=np.uint64)
+                for j in range(25):
+                    pre[j] = kw[c + 2 * j] | (kw[c + 2 * j + 1] << 32)
+                    post[j] = kw[c + 50 + 2 * j] | (kw[c + 50 + 2 * j + 1] << 32)
+                got = keccak_permute(pre[None])[0]
+                if not (got == post).all():
+                    raise VerificationError(
+                        f"segment {i}: keccak accelerator output mismatch")
+        keccak_words += kw
+        # bigint accelerator IO: recompute a*b mod m over the bound
+        # operands unless an accelerator proof discharges them (resolve)
+        bw = pp["bigint_words"]
+        if len(bw) % 48:
+            raise VerificationError(f"segment {i}: bad bigint IO length")
+        if not bigint_checked:
+            for c in range(0, len(bw), 48):
+                vals = [sum(bw[c + 12 * j + w] << (32 * w)
+                            for w in range(12))
+                        for j in range(4)]
+                a, b, mm, r = vals
+                if mm == 0 or r != a * b % mm:
+                    raise VerificationError(
+                        f"segment {i}: bigint accelerator result mismatch")
+        bigint_words += bw
+        # sha-256 accelerator IO: recompute the compression over the
+        # bound operands unless an accelerator proof discharges them
+        sw = pp["sha_words"]
+        if len(sw) % 32:
+            raise VerificationError(f"segment {i}: bad sha IO length")
+        if not sha_checked:
+            for c in range(0, len(sw), 32):
+                if _sha_compress_words(sw[c:c + 8], sw[c + 8:c + 24]) \
+                        != sw[c + 24:c + 32]:
+                    raise VerificationError(
+                        f"segment {i}: sha accelerator result mismatch")
+        sha_words += sw
+        journal_words += pp["journal_words"]
+        expect_pc = pp["exit_pc"]
+    journal = b"".join(int(w).to_bytes(4, "little") for w in journal_words)
+    if hashlib.sha256(journal).digest() != claim.journal_digest:
+        raise VerificationError("journal does not match claim digest")
+    return {"keccak_words": keccak_words, "bigint_words": bigint_words,
+            "sha_words": sha_words}
+
+
+def _sha_compress_words(state, block):
+    """Pure-python SHA-256 compression (FIPS 180-4) for the host-side
+    accelerator-IO recompute."""
+    from ..hash.sha256 import _K
+    M = 0xFFFFFFFF
+    rotr = lambda x, n: ((x >> n) | (x << (32 - n))) & M
+    w = list(block)
+    for t in range(16, 64):
+        s0 = rotr(w[t - 15], 7) ^ rotr(w[t - 15], 18) ^ (w[t - 15] >> 3)
+        s1 = rotr(w[t - 2], 17) ^ rotr(w[t - 2], 19) ^ (w[t - 2] >> 10)
+        w.append((w[t - 16] + s0 + w[t - 7] + s1) & M)
+    a, b, c, d, e, f, g, h = state
+    for t in range(64):
+        S1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)
+        ch = (e & f) ^ (~e & g & M)
+        t1 = (h + S1 + ch + int(_K[t]) + w[t]) & M
+        S0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)
+        maj = (a & b) ^ (a & c) ^ (b & c)
+        t2 = (S0 + maj) & M
+        h, g, f, e, d, c, b, a = g, f, e, (d + t1) & M, c, b, a, (t1 + t2) & M
+    return [(x + y) & M for x, y in zip(state, [a, b, c, d, e, f, g, h])]
+
+
+def verify_segments(seals, paging_seals, claim, image_addrs, image_words,
+                    entry_pc: int,
+                    keccak_checked: bool = False,
+                    bigint_checked: bool = False,
+                    sha_checked: bool = False, device=None) -> dict:
+    """Verify a chain of (segment, paging) seal pairs; returns the bound
+    accelerator IO ({"keccak_words", "bigint_words", "sha_words"}).
+
+    Per segment: the paging STARK (page hashes + root update + d0/d1
+    binding), the rv32im STARK verified WITH the paging proof's d0/d1
+    as derived scalars and its main root as the transcript pre-seed
+    (extra_mix), the g4/g5 cross-check (the paging proof's public
+    challenges must equal the ones the rv32im transcript sampled), then
+    every chain check of verify_chain (pc/register/root continuity,
+    halt/exit-code, journal digest, accelerator IO). The STARK verifies
+    recompute their control roots on `device` (None: the CUDA card)."""
+    from ..zkvm import VerificationError
+    from .paging import PagingAir
+    air = _air_for_image(image_addrs, image_words)
+    pg_air = PagingAir()
+    if len(paging_seals) != len(seals):
+        raise VerificationError("segment/paging seal count mismatch")
+    publics_list, paging_pubs_list = [], []
+    for i, (seal, pseal) in enumerate(zip(seals, paging_seals)):
+        proof = proof_mod.decode(seal)
+        pg_proof = proof_mod.decode(pseal)
+        pubs = [int(p) for p in proof.publics]
+        pg_pubs = [int(p) for p in pg_proof.publics]
+        try:
+            ppg = PagingAir.parse_publics(pg_pubs)
+            verifier_mod.verify(pg_air, pg_proof, pg_pubs, device=device)
+            sampled = verifier_mod.verify(
+                air, proof, pubs,
+                derived_extra={"d0": ppg["d0"], "d1": ppg["d1"]},
+                extra_mix=pg_proof.roots["main"], device=device)
+        except verifier_mod.VerificationError as e:
+            raise VerificationError(f"segment {i}: {e}") from e
+        if not ((np.asarray(sampled[4], np.uint64) == ppg["g4"]).all()
+                and (np.asarray(sampled[5], np.uint64) == ppg["g5"]).all()):
+            raise VerificationError(
+                f"segment {i}: paging proof challenges do not match the "
+                "rv32im transcript")
+        publics_list.append(pubs)
+        paging_pubs_list.append(pg_pubs)
+    return verify_chain(publics_list, claim, image_addrs, image_words,
+                        entry_pc, paging_publics_list=paging_pubs_list,
+                        keccak_checked=keccak_checked,
+                        bigint_checked=bigint_checked,
+                        sha_checked=sha_checked)
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,7 @@ Counterpart of ``zeth_tpu.hash.poseidon2``. Two halves:
   ``hash_rows`` (the plain leaf sponge), ``hash_pairs``, and
   ``leaf_hash``, which sends a CUDA matrix to the hand-written leaf
   kernel (``kernels/csrc/poseidon2_leaf.cu``) and a CPU matrix to
-  ``hash_rows``.
+  ``hash_rows``; ``sponge_row`` hashes one long host row through it.
 
 The torch permutation takes and returns Montgomery tensors like the
 reference, but runs its rounds on standard-form int64 values: the round
@@ -38,6 +38,7 @@ import torch
 
 from .. import hostmath as H
 from .. import kernels
+from ..convert import resolve_device
 from ..hostmath import P, RINV, R
 
 CELLS = 24          # permutation width t
@@ -361,3 +362,15 @@ def leaf_hash(rows):
         raise RuntimeError(f"poseidon2_leaf launch failed: CUDA error {err}")
     kernels.LAUNCHES["poseidon2_leaf"] += 1
     return out
+
+
+def sponge_row(values, device=None) -> np.ndarray:
+    """Sponge digest of one row of standard-form field elements, equal to
+    ``hash_rows_np(values[None])[0]``, computed by ``leaf_hash`` on
+    `device` (None: the CUDA card): the leaf kernel on a card (one
+    thread, one permutation after another), ``hash_rows`` on the CPU.
+    Returns the (8,) standard-form digest."""
+    row = H.to_monty_np(np.asarray(values, np.uint64).reshape(1, -1) % H.PU)
+    t = torch.from_numpy(row.view(np.int32)).to(resolve_device(device))
+    out = leaf_hash(t).cpu().numpy().view(np.uint32)
+    return H.from_monty_np(out)[0]

@@ -220,45 +220,47 @@ def ext_powers(base, n: int) -> np.ndarray:
     return out
 
 
-# -- host NTT (standard form) -------------------------------------------------
-# Mirrors zeth_tpu.ntt's natural-order DIT stages in portable numpy so
-# the verifier can recompute deterministic commitments (the control-group
-# root) without a device.
+def ext_power_table(base, n: int) -> np.ndarray:
+    """The same (n, 4) table as ``ext_powers``, by log-doubling: each step
+    is one vectorized ext_mul instead of one per power. ``ext_powers``
+    stays the reference's loop where the rv32im segment path calls it, so
+    that path's host stage times stay comparable."""
+    out = np.zeros((n, 4), dtype=_U64)
+    if n == 0:
+        return out
+    out[0] = ext(1)
+    k, cur = 1, ext(base)
+    while k < n:
+        m = min(k, n - k)
+        out[k:k + m] = ext_mul(out[:m], cur)
+        cur = ext_mul(cur, cur)
+        k *= 2
+    return out
 
 
-def _bitrev(n: int) -> np.ndarray:
-    k = n.bit_length() - 1
-    idx = np.arange(n, dtype=np.int64)
-    rev = np.zeros(n, dtype=np.int64)
-    for b in range(k):
-        rev |= ((idx >> b) & 1) << (k - 1 - b)
-    return rev
+_RLC_BLOCK = 1 << 10
 
 
-def _ntt_np_core(x: np.ndarray, inverse: bool) -> np.ndarray:
-    n = x.shape[0]
-    x = (np.asarray(x, _U64) % PU)[_bitrev(n)]
-    for s in range(1, n.bit_length()):
-        m = 1 << s
-        half = m // 2
-        w = rou_rev(m) if inverse else rou_fwd(m)
-        tw = powers(w, half)
-        xr = x.reshape((n // m, m) + x.shape[1:])
-        shape = (1, half) + (1,) * (x.ndim - 1)
-        odd = xr[:, half:] * tw.reshape(shape) % PU
-        even = xr[:, :half]
-        x = np.concatenate([(even + odd) % PU, (even + PU - odd) % PU],
-                           axis=1).reshape((n,) + x.shape[1:])
-    return x
+def ext_rlc(values, base) -> np.ndarray:
+    """sum_i values[i] * base^(L-1-i) for L base-field values below 2^16
+    and an extension element `base`: the Horner RLC of a limb stream, (4,).
 
-
-def ntt_np(x: np.ndarray) -> np.ndarray:
-    """Coefficients -> evaluations on the size-n subgroup (natural order)."""
-    return _ntt_np_core(x, inverse=False)
-
-
-def intt_np(x: np.ndarray) -> np.ndarray:
-    """Evaluations -> coefficients."""
-    n = x.shape[0]
-    out = _ntt_np_core(x, inverse=True)
-    return out * np.uint64(pow(n, P - 2, P)) % PU
+    Equal to the loop ``acc += values[i] * ext_powers(base, L)[L-1-i]``,
+    computed in bulk: the reversed stream is cut into blocks of 1,024
+    values, each block's sum against [base^0 .. base^1023] is one exact
+    uint64 product (each term < 2^47, a block's sum < 2^57), and the
+    block sums are weighted by powers of base^1024. Field arithmetic is
+    exact, so the order of the additions does not change the value."""
+    v = np.asarray(values, dtype=_U64).reshape(-1)[::-1]
+    n = v.shape[0]
+    if n == 0:
+        return np.zeros(4, dtype=_U64)
+    if int(v.max()) >= 1 << 16:
+        raise ValueError("ext_rlc takes values below 2^16")
+    nblk = -(-n // _RLC_BLOCK)
+    padded = np.zeros(nblk * _RLC_BLOCK, dtype=_U64)
+    padded[:n] = v
+    inner = (padded.reshape(nblk, _RLC_BLOCK)
+             @ ext_power_table(base, _RLC_BLOCK)) % PU
+    outer = ext_power_table(ext_pow(base, _RLC_BLOCK), nblk)
+    return ext_mul(inner, outer).sum(axis=0) % PU

@@ -1,15 +1,20 @@
-"""Host-side STARK verifier (portable numpy; no device required).
+"""STARK verifier: host numpy, with the control commitment on a device.
 
-Jax-free copy of ``zeth_tpu.zkp.verifier``.
+Jax-free copy of ``zeth_tpu.zkp.verifier``, with one departure: the
+control group's root, which is deterministic per (air, po2), is
+recomputed the way the prover commits it (upload, coset LDE, Merkle
+tree) on `device` (None: the CUDA card; ``"cpu"`` runs it in torch on
+the host), where the reference recomputes it in numpy. At po2=20 the
+numpy recomputation takes minutes; the value is the same.
 
 Replaces the verifier of risc0-zkp 3.0.2 (SURVEY.md §2.2). Mirrors the
 prover's transcript (PROTOCOL.md) exactly; the "implement the verifier
 first" oracle of SURVEY.md §7.2 step 6 — every prover change must keep
 this verifier accepting.
 
-The control group's root is deterministic per (air, po2): it is recomputed
-once (device hashing, cached) and any proof whose control root differs is
-rejected — the analog of the reference's known code/control commitment.
+Any proof whose control root differs from the recomputed one (cached per
+(air, po2)) is rejected — the analog of the reference's known
+code/control commitment.
 """
 
 from __future__ import annotations
@@ -19,11 +24,12 @@ import functools
 import numpy as np
 
 from .. import hostmath as H
+from ..convert import resolve_device
 from ..hostmath import GENERATOR, P
 from ..hash import merkle
 from . import fri
 from .air import Air, HostExtOps
-from .prover import TAP_STREAMS, BLOWUP, StarkProof
+from .prover import TAP_STREAMS, BLOWUP, StarkProof, _lde, _upload_std
 from .transcript import Transcript
 
 
@@ -32,21 +38,13 @@ class VerificationError(Exception):
 
 
 @functools.lru_cache(maxsize=None)
-def _expected_control_root(air_key, po2: int) -> tuple:
-    """Host-only (numpy) control-group commit — verification requires no
-    device (VERDICT r1 weak #4; cached per (air, po2))."""
-    from ..hash import poseidon2 as P2
+def _expected_control_root(air_key, po2: int, device) -> tuple:
+    """The control-group commitment of (air, po2), computed on `device`
+    exactly as ``prover.prove`` commits the control group; cached."""
     air = _AIR_REGISTRY[air_key]
-    std = np.asarray(air.control_trace(po2), np.uint64) % np.uint64(P)
-    n = std.shape[0]
-    coeffs = H.intt_np(std)
-    coeffs = coeffs * H.powers(GENERATOR, n)[:, None] % np.uint64(P)
-    pad = np.zeros((n * (BLOWUP - 1), std.shape[1]), np.uint64)
-    lde = H.ntt_np(np.concatenate([coeffs, pad], axis=0))
-    digests = P2.hash_rows_np(lde)
-    while digests.shape[0] > 1:
-        digests = P2.hash_pairs_np(digests[0::2], digests[1::2])
-    return tuple(int(v) for v in digests[0])
+    dev = _upload_std(air.control_trace(po2), device)
+    tree = merkle.commit_rows(_lde(dev, std=True))
+    return tuple(int(v) for v in tree.root)
 
 
 _AIR_REGISTRY: dict = {}
@@ -58,8 +56,11 @@ def _ensure(cond, msg):
 
 
 def verify(air: Air, proof: StarkProof, publics: list[int],
-           derived_extra=None, extra_mix=None) -> np.ndarray:
+           derived_extra=None, extra_mix=None, device=None) -> np.ndarray:
     """Raise VerificationError unless the proof is valid for (air, publics).
+
+    device: where the control commitment is recomputed (None: the CUDA
+    card; without one the call raises); everything else runs on the host.
 
     derived_extra/extra_mix: companion-proof bindings, mirroring
     prover.prove (the caller is responsible for checking the companion
@@ -71,8 +72,10 @@ def verify(air: Air, proof: StarkProof, publics: list[int],
     short arrays, bad counts) raises VerificationError too, never a bare
     IndexError/ValueError (ADVICE.md r1 finding #4).
     """
+    device = resolve_device(device)
     try:
-        return _verify_inner(air, proof, publics, derived_extra, extra_mix)
+        return _verify_inner(air, proof, publics, derived_extra, extra_mix,
+                             device)
     except VerificationError:
         raise
     except (IndexError, ValueError, KeyError, AssertionError, TypeError,
@@ -82,7 +85,7 @@ def verify(air: Air, proof: StarkProof, publics: list[int],
 
 
 def _verify_inner(air: Air, proof: StarkProof, publics: list[int],
-                  derived_extra=None, extra_mix=None) -> np.ndarray:
+                  derived_extra, extra_mix, device) -> np.ndarray:
     n = 1 << proof.po2
     _ensure(isinstance(proof.po2, int) and 2 <= proof.po2 <= 27,
             "po2 out of range")
@@ -99,8 +102,9 @@ def _verify_inner(air: Air, proof: StarkProof, publics: list[int],
     # --- replay commits --------------------------------------------------
     _AIR_REGISTRY[air.name] = air
     if air.control_cols:
-        want_root = np.array(_expected_control_root(air.name, proof.po2),
-                             dtype=np.uint64)
+        want_root = np.array(
+            _expected_control_root(air.name, proof.po2, device),
+            dtype=np.uint64)
         _ensure((proof.roots["control"] == want_root).all(),
                 "control root mismatch")
     t.mix(proof.roots["control"])
@@ -143,9 +147,9 @@ def _verify_inner(air: Air, proof: StarkProof, publics: list[int],
     chals_ops = [tuple(H.ext(int(c[j]) % P) for j in range(4))
                  for c in challenges]
     cs = air.constraints(v, HostExtOps, pubs_ops, chals_ops)
-    c_at_z = np.zeros(4, dtype=np.uint64)
-    for i, c in enumerate(cs):
-        c_at_z = H.ext_add(c_at_z, H.ext_mul(H.ext_pow(alpha, i), c))
+    # sum_i alpha^i c_i, summed in one vectorized step
+    c_at_z = H.ext_mul(H.ext_power_table(alpha, len(cs)),
+                       np.stack([H.ext(c) for c in cs])).sum(axis=0) % H.PU
     z_n = H.ext_pow(z, n)
     z_inv = H.ext_inv(H.ext_sub(z_n, H.ext(1)))
     q_expected = H.ext_mul(c_at_z, z_inv)
@@ -165,7 +169,7 @@ def _verify_inner(air: Air, proof: StarkProof, publics: list[int],
     beta = t.sample_ext()
     n_z = air.control_cols + air.main_cols + air.aux_cols + 16
     n_zg = air.control_cols + air.main_cols + air.aux_cols
-    beta_pows = H.ext_powers(beta, n_z + n_zg)
+    beta_pows = H.ext_power_table(beta, n_z + n_zg)
     w_n = H.rou_fwd(n)
     zg = H.ext_mul(H.ext(z), H.ext(w_n))
 
@@ -173,7 +177,9 @@ def _verify_inner(air: Air, proof: StarkProof, publics: list[int],
     group_order_zg = ["control", "main", "aux"]
 
     def inner(q):
-        """f0(x_q) from the opened LDE rows at query q."""
+        """f0(x_q) from the opened LDE rows at query q: per point, the
+        beta-weighted sum over the columns of (f(x_q) - tap), each group's
+        columns in one vectorized step."""
         qi = proof.query_indices.index(q)
         x = GENERATOR * pow(H.rou_fwd(BLOWUP * n), q, P) % P
         acc = np.zeros(4, dtype=np.uint64)
@@ -182,17 +188,18 @@ def _verify_inner(air: Air, proof: StarkProof, publics: list[int],
             num = np.zeros(4, dtype=np.uint64)
             j = 0
             for gname in order:
-                row = proof.openings[gname].rows[qi]
-                off_tap = 0 if gname != "check" else 0
+                c = sizes[gname]
+                row = np.asarray(proof.openings[gname].rows[qi],
+                                 dtype=np.uint64).reshape(-1)
+                _ensure(row.shape[0] >= c, f"short opening row: {gname}")
                 stream = tap_slices[(gname, 1 if base else 0)] \
                     if gname != "check" else tap_slices[("check", 0)]
-                for col in range(sizes[gname]):
-                    fx = H.ext(int(row[col]))
-                    vj = taps[stream][col]
-                    num = H.ext_add(
-                        num, H.ext_mul(beta_pows[base + j],
-                                       H.ext_sub(fx, vj)))
-                    j += 1
+                fx = np.zeros((c, 4), dtype=np.uint64)   # base -> ext
+                fx[:, 0] = row[:c] % H.PU
+                diff = H.ext_sub(fx, taps[stream][:c])
+                num = (num + H.ext_mul(beta_pows[base + j:base + j + c],
+                                       diff).sum(axis=0)) % H.PU
+                j += c
             denom = H.ext_inv(H.ext_sub(H.ext(x), point))
             acc = H.ext_add(acc, H.ext_mul(num, denom))
         return acc
