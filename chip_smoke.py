@@ -7,8 +7,10 @@ halting ``spin`` segment, and the first segment of the stateless-client
 (EVM) guest validating the smaller fixture block, each executed by the
 C++ executor, proved with its paging companion proof by
 ``zeth_tpu_torch.circuits.rv32im`` and verified; then the block's
-accelerator batches, and receipts of small guests through
-``zeth_tpu_torch.zkvm``. Phases, each of which exits non-zero on failure:
+accelerator batches, receipts of small guests through
+``zeth_tpu_torch.zkvm``, and the recursion: the EVM segment and the
+block's batches lifted and joined to one root proof, and succinct
+receipts. Phases, each of which exits non-zero on failure:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every CUDA kernel of the path from the sources in the checkout
@@ -24,8 +26,8 @@ accelerator batches, and receipts of small guests through
 5. spin: a po2=18 spin segment and its paging proof, untimed inside (as
    a user runs it), the kernels' launch counts read around this run
    alone, verified by ``verify_segments`` against a ``ReceiptClaim`` as
-   bench.py verifies it; then the po2=20 spin segment proved once with
-   the prover's stage timers on, for the breakdown only;
+   bench.py verifies it; then proved again with the prover's stage
+   timers on, for the breakdown only (same seals);
 6. EVM front end: the guest ELF compiled from the checkout's C sources,
    the fixture block encoded, the guest executed with its trace;
 7. aux: ``build_aux_device`` on the card against the host ``build_aux``
@@ -43,15 +45,31 @@ accelerator batches, and receipts of small guests through
 10. receipt: ``zkvm.LocalProver`` and ``Receipt.verify`` on four guests
    (echo, keccak, bigint, sha), each with one tamper that must be
    rejected;
-11. a ``{"kernels": [...]}`` line, the card line, and the final
+11. succinct: (a) EVM segment 0's proof and its paging proof lifted into
+   the recursion circuit and joined, the block's keccak and sha batches
+   lifted, all folded to one root proof by
+   ``succinct.aggregate_segments`` and verified by
+   ``verify_root_segments``, with a flipped root-seal word and a forged
+   d0 binding rejected; one line per recursion proof with its host and
+   prove seconds, leaf launches and peak memory; (b) ``zkvm.LocalProver``
+   under ``ZETH_SUCCINCT=1`` on a three-segment spin guest and on a
+   bigint guest, each receipt verified and tampered (a forged d0 binding,
+   a forged paging public, a flipped root-seal word, a flipped
+   accelerator public);
+12. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, ...}`` line.
 
 The script needs a CUDA card: without one it exits non-zero before any
 result. It imports no jax and nothing of the JAX package (``zeth_tpu``).
+It must finish within 1200 s, the kernels' build included (about 1,000 s
+on an H100 80GB HBM3 at 700 W): where that needs a cut, the depth of an
+earlier path is cut first (the staged spin prove runs at po2=18, not
+po2=20), never a check.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import hashlib
 import json
@@ -86,11 +104,12 @@ AUX_BLOCKS = ["t", "u", "acc", "t_r1", "t_r2", "t_w", "t_a7", "s0", "s1",
 # the Poseidon2 leaf kernel's shapes as (rows, cols, kernel calls, plain
 # calls) timed: edge cases, the rv32im main group at po2=10, the keccak
 # and bigint batches' main LDEs, one long row (4,096 permutations one
-# after another), and the rv32im main group at po2=20 (the headline)
+# after another), the recursion circuit's main LDE at po2=19, and the
+# rv32im main group at po2=20 (the headline)
 LEAF_SHAPES = [(1, 3, 20, 3), (7, 16, 20, 3), (1000, 37, 20, 3),
                (4096, 1009, 20, 3), (1 << 14, 4161, 5, 1),
                (1 << 17, 3410, 3, 1), (1, 65536, 3, 1),
-               (1 << 22, 1009, 3, 1)]
+               (1 << 21, 84, 5, 1), (1 << 22, 1009, 3, 1)]
 # the bigint batch's claims row: 25,825 ops x 96 limbs
 CLAIMS_ROW = 25825 * 96
 
@@ -383,10 +402,10 @@ def fixture_batches(fx) -> dict:
     }
 
 
-def accel_phase(dev, card, ex, seg0_seal, fx) -> dict:
+def accel_phase(dev, card, ex, seg0_seal, fx) -> tuple:
     """The block's accelerator batches proved and verified on the card,
     and linked to segment 0's bound IO. Returns the leaf launches of the
-    three untimed proves."""
+    three untimed proves, and the batches' seals by kind."""
     from zeth_tpu_torch import kernels, zkvm
     from zeth_tpu_torch.circuits import rv32im
     from zeth_tpu_torch.zkp import proof as proof_mod
@@ -465,7 +484,7 @@ def accel_phase(dev, card, ex, seg0_seal, fx) -> dict:
             raise SystemExit(f"small {kind} seal differs from the fixture")
     log("[accel] small keccak, bigint and sha seals equal the fixture "
         "digests")
-    return launches
+    return launches, {kind: out[kind][0] for kind in out}
 
 
 def receipt_guests() -> list:
@@ -532,6 +551,253 @@ def receipt_phase(dev, card) -> dict:
     return launches
 
 
+def recursion_proof(dev, card, kind, what, prove) -> tuple:
+    """One lift or join, as ``prove`` makes it, with the prover's stage
+    timers on. Prints its program rows, recursion po2, the seconds of the
+    host compile, the native interpreter, the control trace, the host
+    LogUp aux and the prove, its leaf launches and the peak device
+    memory. Returns (RecReceipt, that row)."""
+    from zeth_tpu_torch import kernels
+    from zeth_tpu_torch.zkp import prover
+    before = kernels.LAUNCHES["poseidon2_leaf"]
+    prover.TIMING = True
+    prover.STAGE_LOG.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    rec = prove()
+    torch.cuda.synchronize()
+    total = time.time() - t0
+    prover.TIMING = False
+    stages = {}
+    for name, dt in prover.STAGE_LOG:
+        stages[name.strip()] = stages.get(name.strip(), 0.0) + dt
+    pr = rec.node.program
+    row = {"kind": kind, "what": what, "rows": pr.n_rows, "po2": pr.po2(),
+           "compile_s": stages.get("recursion compile (host)", 0.0),
+           "witgen_s": stages["recursion witgen (host, native)"],
+           "control_s": stages["control trace (host)"],
+           "aux_s": stages["aux witgen (host)"],
+           "prove_s": stages["recursion prove"], "total_s": total,
+           "launches": kernels.LAUNCHES["poseidon2_leaf"] - before,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    log(f"{card} | [succinct] {kind} {what}: {row['rows']} program rows, "
+        f"recursion po2={row['po2']}; compile {row['compile_s']:.3f} s, "
+        f"interpreter {row['witgen_s']:.3f} s, control trace "
+        f"{row['control_s']:.3f} s, build_aux {row['aux_s']:.3f} s, prove "
+        f"{row['prove_s']:.3f} s (the last three inside it), all "
+        f"{total:.3f} s; {row['launches']} leaf launches, peak device "
+        f"memory {row['peak_gib']:.2f} GiB")
+    return rec, row
+
+
+def must_reject(what: str, check) -> str:
+    """Run a verification that must fail; return why it failed."""
+    from zeth_tpu_torch import zkvm
+    from zeth_tpu_torch.zkp import verifier
+    try:
+        check()
+    except (zkvm.VerificationError, verifier.VerificationError,
+            ValueError, AssertionError) as e:
+        log(f"[succinct] {what} rejected: {str(e)[:120]}")
+        return str(e)
+    raise SystemExit(f"{what} was accepted")
+
+
+@contextlib.contextmanager
+def timed_recursion(dev, card, rows: list):
+    """Inside, every ``succinct.lift`` and ``succinct.join`` call, the
+    library's own (``aggregate_segments`` and its fold call them by
+    name), is one ``recursion_proof`` whose row is appended to
+    ``rows``."""
+    from zeth_tpu_torch.recursion import succinct
+    lift, join = succinct.lift, succinct.join
+
+    def timed_lift(inner_air, inner_proof, extra=None, device=None):
+        what = (f"{inner_air.name.split(':')[0]} proof "
+                f"(po2={inner_proof.po2}, "
+                f"{len(inner_proof.publics)} publics)")
+        rec, row = recursion_proof(
+            dev, card, "lift", what,
+            lambda: lift(inner_air, inner_proof, extra, device))
+        rows.append(row)
+        return rec
+
+    def timed_join(left, right, device=None):
+        what = (f"of recursion proofs at po2 {left.node.program.po2()} + "
+                f"{right.node.program.po2()}")
+        rec, row = recursion_proof(dev, card, "join", what,
+                                   lambda: join(left, right, device))
+        rows.append(row)
+        return rec
+
+    succinct.lift, succinct.join = timed_lift, timed_join
+    try:
+        yield
+    finally:
+        succinct.lift, succinct.join = lift, join
+
+
+def succinct_main(dev, card, seal, pg_seal, ia, iw, accel_seals) -> list:
+    """11a: EVM segment 0's proof and its paging proof lifted and joined,
+    the block's keccak and sha batches lifted, all folded to one root by
+    ``succinct.aggregate_segments``, and the root verified by
+    ``verify_root_segments`` on the card. Returns the per-proof rows."""
+    from zeth_tpu_torch import zkvm
+    from zeth_tpu_torch.circuits.paging import PagingAir
+    from zeth_tpu_torch.circuits.rv32im import Rv32imAir
+    from zeth_tpu_torch.hostmath import P
+    from zeth_tpu_torch.recursion import succinct
+    from zeth_tpu_torch.zkp import proof as proof_mod
+    air, pg_air = Rv32imAir(ia, iw), PagingAir()
+    proof, pg_proof = proof_mod.decode(seal), proof_mod.decode(pg_seal)
+    extra = zkvm.paging_extras(pg_proof)
+    batches = {k: proof_mod.decode(accel_seals[k]) for k in ("keccak", "sha")}
+    rows = []
+    t_start = time.time()
+    with timed_recursion(dev, card, rows):
+        root = succinct.aggregate_segments(
+            air, [proof], pg_air, [pg_proof], [extra],
+            accel=[(zkvm.accelerator_air(k), pf) for k, pf in batches.items()],
+            device=dev)
+    prove_s = time.time() - t_start
+    # two segment lifts and their join, two batch lifts, two fold joins
+    if len(rows) != 7:
+        raise SystemExit(f"the fold made {len(rows)} recursion proofs, "
+                         "expected 7")
+    root_seal = proof_mod.encode(root.proof)
+
+    pubs = [int(p) for p in proof.publics]
+    pg_pubs = [int(p) for p in pg_proof.publics]
+    accel = [(zkvm.accelerator_air(k), pf.po2, [int(p) for p in pf.publics])
+             for k, pf in batches.items()]
+
+    def verify(rec, x):
+        succinct.verify_root_segments(
+            rec, air, [proof.po2], [pubs], [x], pg_air, [pg_proof.po2],
+            [pg_pubs], [x[0]], accel=accel, device=dev)
+
+    t0 = time.time()
+    verify(succinct.RecReceipt(proof=proof_mod.decode(root_seal),
+                               claim=root.claim, node=None), extra)
+    verify_s = time.time() - t0
+    log(f"{card} | [succinct] root: {len(rows)} recursion proofs in "
+        f"{prove_s:.3f} s, root seal {root_seal.shape[0]} words "
+        f"({root_seal.shape[0] * 4 / 1024:.1f} KiB), verify_root_segments "
+        f"{verify_s:.3f} s (programs compiled, one control root "
+        f"committed)")
+    bad = root_seal.copy()
+    bad[bad.shape[0] // 2] ^= 1
+
+    def flipped():
+        pf = proof_mod.decode(bad)
+        verify(succinct.RecReceipt(proof=pf, claim=np.asarray(
+            pf.publics, np.uint64), node=None), extra)
+
+    must_reject("a root seal with one flipped word", flipped)
+    forged = (extra[0], (np.asarray(extra[1], np.uint64) + np.uint64(1))
+              % np.uint64(P), *extra[2:])
+    must_reject("a d0 binding changed by one",
+                lambda: verify(root, forged))
+    return rows
+
+
+def succinct_receipts(dev, card) -> None:
+    """11b: ``LocalProver`` under ZETH_SUCCINCT=1 and ``Receipt.verify``
+    on a three-segment spin guest and on a bigint guest, with the tampers
+    of tools/succinct_e2e.py."""
+    from zeth_tpu_torch import zkvm
+    from zeth_tpu_torch.executor import compute_image_id, guests
+    from zeth_tpu_torch.hostmath import P
+    saved = os.environ.get("ZETH_SUCCINCT")
+    os.environ["ZETH_SUCCINCT"] = "1"
+    try:
+        a, b, m = 1234567, 7654321, (1 << 31) - 1
+        for name, elf, po2 in (
+                # three segments of po2=14 (tools/succinct_e2e.py's
+                # (1 << 14) * 5 // 2 iterations make two)
+                ("spin", guests.spin((1 << 14) * 3), 14),
+                ("bigint_guest(reps=2)",
+                 guests.bigint_guest(a, b, m, reps=2), 20)):
+            env = zkvm.ExecutorEnv.builder().segment_limit_po2(po2).build()
+            t0 = time.time()
+            info = zkvm.LocalProver(device=dev).prove(env, elf)
+            torch.cuda.synchronize()
+            prove_s = time.time() - t0
+            receipt, inner = info.receipt, info.receipt.inner
+            image_id = compute_image_id(elf)
+            if inner.kind != "succinct":
+                raise SystemExit(f"{name}: a {inner.kind} receipt")
+            t0 = time.time()
+            receipt.verify(image_id, device=dev)
+            verify_s = time.time() - t0
+            n_seg = len(inner.segment_publics)
+            log(f"{card} | [succinct] receipt {name}: "
+                f"{info.stats.total_cycles} cycles, {n_seg} segment(s) at "
+                f"po2 {inner.segment_po2s}, accelerator claims "
+                f"{[k for k, _, _ in inner.accel_publics]}, prove "
+                f"{prove_s:.3f} s, root seal {inner.root_seal.shape[0]} "
+                f"words, verify {verify_s:.3f} s")
+
+            def reject(what, mutate):
+                keep = mutate()
+                must_reject(f"{name}: {what}",
+                            lambda: receipt.verify(image_id, device=dev))
+                keep()
+
+            if name == "spin":
+                if n_seg < 3:
+                    raise SystemExit(f"spin gave {n_seg} segments, "
+                                     "expected at least 3")
+
+                def d0():
+                    x = inner.segment_extras[0]
+                    inner.segment_extras[0] = (
+                        x[0], (np.asarray(x[1], np.uint64) + np.uint64(1))
+                        % np.uint64(P), *x[2:])
+                    return lambda: inner.segment_extras.__setitem__(0, x)
+
+                def paging():
+                    mid = n_seg // 2
+                    keep = inner.paging_publics[mid]
+                    inner.paging_publics[mid] = list(keep)
+                    inner.paging_publics[mid][32] ^= 1
+                    return lambda: inner.paging_publics.__setitem__(mid, keep)
+
+                def root_word():
+                    keep = inner.root_seal
+                    inner.root_seal = keep.copy()
+                    inner.root_seal[keep.shape[0] // 2] ^= 1
+                    return lambda: setattr(inner, "root_seal", keep)
+
+                reject("a forged d0 binding", d0)
+                reject("a forged paging public (limb 32) of the middle "
+                       "segment", paging)
+                reject("a flipped root-seal word", root_word)
+            else:
+                if receipt.journal != (a * b % m * b % m).to_bytes(
+                        48, "little"):
+                    raise SystemExit(f"{name}: unexpected journal")
+                if not inner.accel_publics:
+                    raise SystemExit(f"{name}: no accelerator claim lifted")
+
+                def accel_pub():
+                    keep = inner.accel_publics[0]
+                    pubs = list(keep[2])
+                    pubs[1] ^= 1
+                    inner.accel_publics[0] = (keep[0], keep[1], pubs)
+                    return lambda: inner.accel_publics.__setitem__(0, keep)
+
+                reject("a flipped accelerator public", accel_pub)
+            # the tampers were undone: the receipt verifies again
+            receipt.verify(image_id, device=dev)
+    finally:
+        if saved is None:
+            os.environ.pop("ZETH_SUCCINCT", None)
+        else:
+            os.environ["ZETH_SUCCINCT"] = saved
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the "
@@ -593,12 +859,14 @@ def main() -> None:
         f"{prove_s:.3f} s ({cycles / prove_s / 1e6:.4f} Mcycles/s), "
         f"verify_segments {verify_s:.3f} s (both STARKs and the chain "
         f"checks), launches {spin_launches}")
-    # the stage breakdown at the full depth, comparable to earlier runs
-    seg, ia, iw, _, _ = spin_segment(((1 << PO2) - 4096) * 3 // 2, PO2)
-    log(f"{card} | [spin-stage] po2={PO2}: {int(seg.trace.shape[0])} cycles")
-    staged_prove(card, "spin-stage",
-                 lambda: rv32im.prove_segment(seg, ia, iw, device=dev))
-    del seg
+    # the stage breakdown, at SPIN_PO2 rather than PO2 to keep the script
+    # inside its time limit
+    staged = staged_prove(card, "spin-stage",
+                          lambda: rv32im.prove_segment(seg, ia, iw,
+                                                       device=dev))
+    if not same_seals(staged, (seal, pg_seal)):
+        raise SystemExit("the stage-timed spin prove gave other seals")
+    del seg, staged
     torch.cuda.empty_cache()
 
     # 6. the EVM segment's front end
@@ -636,21 +904,33 @@ def main() -> None:
         f"peak device memory {peak / 2**30:.2f} GiB, launches {launches}")
 
     # 9. the block's accelerator batches, and the resolve of segment 0
-    accel_launches = accel_phase(dev, card, ex, seals[0], fixture)
-    del ex, seals, pg_seals
+    accel_launches, accel_seals = accel_phase(dev, card, ex, seals[0],
+                                              fixture)
+    del ex
     torch.cuda.empty_cache()
 
     # 10. receipts through the zkvm API
     receipt_launches = receipt_phase(dev, card)
 
-    # 11. results
+    # 11. the recursion: segment 0 and the block's keccak and sha batches
+    # folded to one root proof, then succinct receipts
+    kernels.reset_counts()
+    succinct_main(dev, card, seals[0], pg_seals[0], ia, iw, accel_seals)
+    del seals, pg_seals, accel_seals
+    torch.cuda.empty_cache()
+    succinct_receipts(dev, card)
+    succinct_launches = dict(kernels.LAUNCHES)
+    require_launches(succinct_launches, "succinct")
+
+    # 12. results
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=name, **KERNELS[name], launches=launches[name],
              launches_by_path={"spin": spin_launches[name],
                                "evm": launches[name],
                                "accel": accel_launches[name],
-                               "receipt": receipt_launches[name]},
+                               "receipt": receipt_launches[name],
+                               "succinct": succinct_launches[name]},
              **results[name]) for name in kernels.NAMES]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -56,7 +56,11 @@ def test_every_port_module_imports_without_jax():
                  "app.state", "app.txs", "app.host", "app.kzg",
                  "app.bls12381", "app.guest_input", "cc", "cc.compiler",
                  "hash.sha256", "circuits.keccak", "circuits.bigint2",
-                 "circuits.sha256", "zkvm"):
+                 "circuits.sha256", "circuits.resolve", "zkvm", "recursion",
+                 "recursion.vm",
+                 "recursion.witgen_native", "recursion.builder",
+                 "recursion.compiler", "recursion.succinct",
+                 "recursion.scheduler"):
         assert "zeth_tpu_torch." + name in names
 
 
@@ -83,6 +87,43 @@ def test_stateless_guest_builds_and_runs_without_jax():
     assert int(out.split()[-1]) > 1
 
 
+def test_recursion_lift_program_without_jax():
+    """The recursion VM as the card's machine runs it: a hand program
+    through the native interpreter, and a toy proof's lift program
+    compiled, its stream interpreted and its constraints checked."""
+    out = _run("""
+        import numpy as np, torch
+        torch.set_num_threads(2)
+        from zeth_tpu_torch.circuits.toy import SquareChainAir
+        from zeth_tpu_torch.hash import poseidon2
+        from zeth_tpu_torch.recursion import builder, compiler, succinct, vm
+        from zeth_tpu_torch.zkp import prover
+        from zeth_tpu_torch.zkp.air import check_constraints
+        b = builder.Builder()
+        d = b.sponge_hash(b.inputs(3))
+        pr = b.build()
+        _, wom = vm.RecursionAir(pr).witgen(np.array([1, 2, 3], np.uint64))
+        assert [int(wom[c][0]) for c in d] == [int(x) for x in
+            poseidon2.hash_rows_np(np.array([[1, 2, 3]], np.uint64))[0]]
+        air = SquareChainAir()
+        # x0 = 8: a small proof-of-work nonce, a short CPU grind
+        main, pubs = SquareChainAir.witgen(5, x0=8)
+        proof = prover.prove(air, main, pubs, device="cpu")
+        vp = succinct.lift_program(air, 5, len(pubs), device="cpu")
+        rair = vp.air()
+        m, _ = rair.witgen(compiler.proof_to_stream(vp, proof))
+        claim = compiler.claim_digest(5, pubs, device="cpu")
+        chal = np.array([[3, 5, 7, 11], [13, 17, 19, 23]], np.uint64)
+        bad = check_constraints(rair, rair.control_trace(vp.program.po2()),
+                                m, rair.build_aux(m, chal),
+                                publics=[int(x) for x in claim],
+                                challenges=chal)
+        assert bad == {}, bad
+        print("lift rows", vp.program.n_rows)
+    """)
+    assert "lift rows" in out
+
+
 def test_toy_prove_and_verify_without_jax():
     out = _run("""
         import torch
@@ -106,6 +147,7 @@ def _default_device_calls():
     from zeth_tpu_torch.circuits import bigint2, keccak, rv32im, sha256
     from zeth_tpu_torch.circuits.toy import SquareChainAir
     from zeth_tpu_torch.executor import Executor, guests, load_image
+    from zeth_tpu_torch.recursion import compiler, succinct
     from zeth_tpu_torch.zkp import prover, verifier
     from zeth_tpu_torch.zkp.transcript import Transcript
 
@@ -135,6 +177,16 @@ def _default_device_calls():
             zkvm.ExecutorEnv.builder().build(), guests.sum_loop(5)),
         # the device is resolved before the proof is read
         "verify": lambda: verifier.verify(SquareChainAir(), None, []),
+        "succinct.lift": lambda: succinct.lift(SquareChainAir(), None),
+        "succinct.join": lambda: succinct.join(None, None),
+        "succinct.aggregate_segments": lambda:
+            succinct.aggregate_segments(None, [], None, [], []),
+        "succinct.verify_root_segments": lambda:
+            succinct.verify_root_segments(None, None, [], [], [], None, [],
+                                          [], []),
+        "compiler.claim_digest": lambda: compiler.claim_digest(9, [1, 2]),
+        "compiler.expected_control_root": lambda:
+            compiler.expected_control_root(SquareChainAir(), 5),
     }
 
 
@@ -143,7 +195,12 @@ def _default_device_calls():
                                    "prove_segment", "keccak.prove_batch",
                                    "bigint2.prove_batch",
                                    "sha256.prove_batch",
-                                   "LocalProver.prove", "verify"])
+                                   "LocalProver.prove", "verify",
+                                   "succinct.lift", "succinct.join",
+                                   "succinct.aggregate_segments",
+                                   "succinct.verify_root_segments",
+                                   "compiler.claim_digest",
+                                   "compiler.expected_control_root"])
 def test_entry_point_without_device_raises_without_cuda(monkeypatch, entry):
     """The entry points run on the card by default; where there is none
     they raise and do not carry on on the CPU."""

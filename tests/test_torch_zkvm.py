@@ -133,10 +133,65 @@ def test_local_prover_receipt_verifies_under_its_image_only():
 
 
 def test_succinct_receipt_raises(monkeypatch):
+    """Under ZETH_SUCCINCT=1 the prover with no device runs on the card:
+    where there is none it raises rather than prove on the CPU."""
     monkeypatch.setenv("ZETH_SUCCINCT", "1")
-    with pytest.raises(NotImplementedError, match="recursion"):
-        TZ.LocalProver(device="cpu").prove(TZ.ExecutorEnv.builder().build(),
-                                           guests.echo_input(8))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        TZ.LocalProver().prove(TZ.ExecutorEnv.builder().build(),
+                               guests.echo_input(8))
+
+
+def test_paging_extras_equal_reference():
+    """The companion bindings a segment's lift claim pins, as the JAX
+    package's LocalProver reads them from the paging proof."""
+    from zeth_tpu.circuits.paging import PagingAir as JPagingAir
+    _, pg_seal, _, _, _, _ = _spin()
+    pg = TPF.decode(pg_seal)
+    got = TZ.paging_extras(pg)
+    ppg = JPagingAir.parse_publics(_publics(pg_seal))
+    want = (np.asarray(pg.roots["main"], np.uint64), ppg["d0"], ppg["d1"],
+            ppg["g4"], ppg["g5"])
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def _succinct_receipt(fault):
+    """A succinct receipt of the fixture spin segment whose root seal is
+    not a proof, with one more `fault` in what it claims."""
+    seal, pg_seal, claim, ia, iw, entry = _spin()
+    with open(FIXTURE) as f:
+        elf = guests.spin(json.load(f)["spin"]["spin_iters"])
+    journal = Executor(elf, segment_po2=12).run().journal
+    pg = TPF.decode(pg_seal)
+    inner = TZ.SuccinctInner(
+        root_seal=np.zeros(16, np.uint32),
+        segment_publics=[_publics(seal)], segment_po2s=[11],
+        segment_extras=[TZ.paging_extras(pg)], paging_po2s=[pg.po2],
+        paging_publics=[_publics(pg_seal)], image_addrs=ia,
+        image_words=iw, entry_pc=entry, accel_publics=[])
+    if fault == "image":
+        inner.entry_pc += 4
+    elif fault == "count":
+        inner.paging_po2s = []
+    elif fault == "unknown_kind":
+        inner.accel_publics = [("blake", 6, [0])]
+    elif fault == "duplicate_kind":
+        inner.accel_publics = [("sha", 6, [0]), ("sha", 6, [0])]
+    return TZ.Receipt(journal=journal, claim=claim, inner=inner)
+
+
+@pytest.mark.parametrize("fault, why", [
+    ("image", "program image"), ("count", "count mismatch"),
+    ("unknown_kind", "unknown accelerator"),
+    ("duplicate_kind", "duplicate accelerator"), ("seal", "succinct receipt")])
+def test_succinct_receipt_rejects_malformed(fault, why):
+    """The succinct branch of Receipt.verify rejects a receipt whose
+    claims do not fit together before any STARK work, and a root seal
+    that is not a proof as a failed verification."""
+    receipt = _succinct_receipt(fault)
+    with pytest.raises(TZ.VerificationError, match=why):
+        receipt.verify(receipt.claim.image_id, device="cpu")
 
 
 def test_input_bytes_roundtrip():

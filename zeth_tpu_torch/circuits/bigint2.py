@@ -40,7 +40,8 @@ because a block's batch carries millions of public limbs: the derived
 challenge (``hostmath.ext_rlc`` instead of a Python loop per limb) and
 the claims digest (one long sponge row, hashed by the leaf kernel on
 `device`). ``prove_batch`` runs on the port's prover on `device` (None:
-the CUDA card); the recursion hooks are not carried.
+the CUDA card). The recursion hooks (``publics_shape``,
+``derived_challenges_rec``) come from ``circuits.resolve``.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from ..zkp import proof as proof_mod
 from ..zkp import prover as prover_mod
 from ..zkp import verifier as verifier_mod
 from ..zkp.air import Air
+from .resolve import LimbStreamResolve
 
 LIMBS = 24                   # 24 x 16-bit = 384 bits
 NK = 2 * LIMBS - 1           # convolution positions 0..46
@@ -76,7 +78,7 @@ CT_ISF, CT_ISL = 0, 1
 N_CONTROL = 2
 
 
-class Bigint2Air(Air):
+class Bigint2Air(LimbStreamResolve, Air):
     """Batch of 384-bit modmul ops, one per row."""
 
     name = "bigint2-modmul384"

@@ -31,9 +31,10 @@ like the reference's assumption receipts).
 
 Port note: a jax-free copy of ``zeth_tpu.circuits.keccak``. The AIR is
 unchanged; ``prove_batch`` runs on the port's prover on `device` (None:
-the CUDA card), ``claims_digest`` hashes on `device` too, and the
-recursion hooks (``publics_shape``, ``derived_challenges_rec``) are not
-carried.
+the CUDA card), and ``claims_digest`` hashes on `device` too. The
+recursion hooks (``publics_shape``, ``derived_challenges_rec``), which
+let ``recursion.succinct`` lift a batch proof into the root fold, come
+from ``circuits.resolve``, shared with the bigint and sha AIRs.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from ..zkp import proof as proof_mod
 from ..zkp import prover as prover_mod
 from ..zkp import verifier as verifier_mod
 from ..zkp.air import Air
+from .resolve import LimbStreamResolve
 
 ROWS_PER_PERM = 32
 ROUNDS = 24
@@ -91,7 +93,7 @@ def _b_col(lane: int, z: int) -> int:
     return _t_col(int(_PI_SRC[lane]), (z - int(_PI_ROT[lane])) % 64)
 
 
-class KeccakAir(Air):
+class KeccakAir(LimbStreamResolve, Air):
     """Batch of keccak-f[1600] permutations, 32 rows each."""
 
     name = "keccak-f1600"

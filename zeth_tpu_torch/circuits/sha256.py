@@ -33,8 +33,9 @@ Port note: a jax-free copy of ``zeth_tpu.circuits.sha256``. The AIR is
 unchanged; the derived challenge is computed in bulk
 (``hostmath.ext_rlc``, the same value as the reference's loop),
 ``prove_batch`` runs on the port's prover on `device` (None: the CUDA
-card), ``claims_digest`` hashes on `device` too, and the recursion hooks
-are not carried.
+card), and ``claims_digest`` hashes on `device` too. The recursion hooks
+(``publics_shape``, ``derived_challenges_rec``) come from
+``circuits.resolve``.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from ..zkp import proof as proof_mod
 from ..zkp import prover as prover_mod
 from ..zkp import verifier as verifier_mod
 from ..zkp.air import Air
+from .resolve import LimbStreamResolve
 
 ROWS_PER_COMP = 66
 ROUNDS = 64
@@ -85,7 +87,7 @@ def _w_col(j: int, z: int) -> int:
     return W_OFF + j * 32 + z
 
 
-class Sha256Air(Air):
+class Sha256Air(LimbStreamResolve, Air):
     """Batch of SHA-256 compressions, 66 rows each."""
 
     name = "sha256-compress"

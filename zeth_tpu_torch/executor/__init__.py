@@ -62,7 +62,8 @@ ST_ERROR = 3
 
 
 def _build():
-    subprocess.run(["make", "-s", "-C", os.path.join(_DIR, "csrc")], check=True)
+    subprocess.run(["make", "-s", "-C", os.path.join(_DIR, "csrc"),
+                    "librv32im.so"], check=True)
 
 
 def _stale(so, srcs):

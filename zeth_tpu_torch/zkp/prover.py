@@ -413,7 +413,11 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
             t.mix(roots["main"])
             continue
         with _Stage(f"commit {gname}", device):
-            src = air.control_trace(po2) if gname == "control" else main_std
+            if gname == "control":
+                with _Stage("  control trace (host)", device):
+                    src = air.control_trace(po2)
+            else:
+                src = main_std
             with _Stage(f"  {gname} upload", device):
                 dev = _upload_std(src, device)
             with _Stage(f"  {gname} lde", device):

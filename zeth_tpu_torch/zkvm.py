@@ -1,13 +1,14 @@
 """zkVM host API: executor env, prover dispatch, receipts.
 
-Counterpart of ``zeth_tpu.zkvm``, a jax-free copy of its segments path:
-``LocalProver`` proves every segment (rv32im + paging) and the
-accelerator batches on `device` (None: the CUDA card), and
-``Receipt.verify`` runs the STARK verifies, the chain checks and the
-accelerator resolve, recomputing the control roots on `device`. The
-succinct receipt (``SuccinctInner``, ``ZETH_SUCCINCT=1``) waits for the
-port's recursion slice: ``LocalProver.prove`` raises under
-``ZETH_SUCCINCT=1`` rather than return another kind of receipt.
+Counterpart of ``zeth_tpu.zkvm``, a jax-free copy: ``LocalProver`` proves
+every segment (rv32im + paging) and the accelerator batches on `device`
+(None: the CUDA card). Without ``ZETH_SUCCINCT=1`` the receipt carries
+those seals, and ``Receipt.verify`` runs the STARK verifies, the chain
+checks and the accelerator resolve. With ``ZETH_SUCCINCT=1`` every
+(segment, paging) pair and every accelerator batch is lifted into the
+recursion circuit and joined to one root proof (``SuccinctInner``), and
+``Receipt.verify`` checks that one STARK, the claim hashing and the
+chain. Both recompute the control roots on `device`.
 
 Python surface mirroring the reference's risc0-zkvm host API
 (SURVEY.md §2.2: `ExecutorEnvBuilder`, `default_prover()`, dev-mode fake
@@ -129,6 +130,35 @@ class SegmentsInner:
 
 
 @dataclass
+class SuccinctInner:
+    """ONE root recursion proof for the whole execution (post lift/join).
+
+    The per-segment publics travel in the clear (they are public); each
+    is bound to a lift claim digest, folded up the in-circuit join tree
+    to the root proof's 8-element public claim — so verification costs
+    ONE STARK verify plus cheap host hashing/chain replay, independent of
+    segment count (the reference's succinct receipt, SURVEY.md §2.2
+    risc0-circuit-recursion)."""
+    root_seal: np.ndarray           # encoded recursion StarkProof
+    segment_publics: list           # [segment][...] public values
+    segment_po2s: list              # [segment] inner trace po2
+    # companion paging bindings, pinned by the pair-joined lift claims
+    # (no paging seals travel — the root proof verified them in-circuit)
+    segment_extras: list = None     # [(pg_root, d0, d1, g4, g5)]
+    paging_po2s: list = None
+    paging_publics: list = None
+    image_addrs: np.ndarray = None
+    image_words: np.ndarray = None
+    entry_pc: int = 0
+    # in-circuit resolve (reference: recursion "resolve" programs): the
+    # accelerator batch proofs were LIFTED into the root fold, so only
+    # their claim-pinned publics travel — no accelerator seals, no
+    # host-side accelerator STARK verification at receipt time
+    accel_publics: list = None      # [(kind, po2, publics ints)]
+    kind: str = "succinct"
+
+
+@dataclass
 class Receipt:
     journal: bytes
     claim: ReceiptClaim
@@ -172,7 +202,82 @@ class Receipt:
                 sha_checked=sha_io is not None, device=device)
             _check_accelerator_io(out, acc_words, big_io, sha_io)
             return
+        if isinstance(self.inner, SuccinctInner):
+            _verify_succinct(self.inner, self.claim, device)
+            return
         raise VerificationError(f"unknown receipt kind: {self.inner!r}")
+
+
+def _verify_succinct(inner, claim, device) -> None:
+    """The succinct branch of ``Receipt.verify``: ONE root STARK on
+    `device`, the host claim hashing, then the chain checks."""
+    from .circuits import rv32im as rv
+    from .circuits.paging import PagingAir
+    from .executor import image_id_from_parts
+    from .recursion import succinct
+    from .zkp import proof as proof_mod
+    from .zkp import verifier as verifier_mod
+    got = image_id_from_parts(inner.entry_pc, inner.image_addrs,
+                              inner.image_words)
+    if not (got == np.asarray(claim.image_id, np.uint64)).all():
+        raise VerificationError("program image does not match image id")
+    air = rv.Rv32imAir(inner.image_addrs, inner.image_words)
+    # succinct paging resolve: the (segment, paging) lift pairs were
+    # joined in-circuit — the root claim pins every segment proof, its
+    # paging proof (via the shared paging main root), and the
+    # cross-bound d0/d1/g4/g5. Verification is ONE root STARK + host
+    # claim hashing; the page-tree roots then chain in verify_chain below.
+    pg_air = PagingAir()
+    if not (len(inner.segment_publics)
+            == len(inner.segment_extras or [])
+            == len(inner.paging_po2s or [])
+            == len(inner.paging_publics or [])):
+        raise VerificationError(
+            "succinct receipt: paging binding count mismatch")
+    paging_pubs_list = [[int(p) for p in ps] for ps in inner.paging_publics]
+    accel = []
+    seen_kinds = set()
+    for kind, a_po2, a_pub in (inner.accel_publics or []):
+        if kind not in ("keccak", "bigint", "sha"):
+            raise VerificationError(
+                f"unknown accelerator claim kind {kind!r}")
+        if kind in seen_kinds:
+            # one batch per kind (prover contract): a duplicate would
+            # silently shadow the first IO stream below
+            raise VerificationError(
+                f"duplicate accelerator claim kind {kind!r}")
+        seen_kinds.add(kind)
+        accel.append((accelerator_air(kind), a_po2, [int(p) for p in a_pub]))
+    try:
+        # a malformed seal fails to decode: rejected like a bad proof
+        root_proof = proof_mod.decode(inner.root_seal)
+        root = succinct.RecReceipt(
+            proof=root_proof, claim=np.asarray(root_proof.publics, np.uint64),
+            node=None)
+        succinct.verify_root_segments(
+            root, air, inner.segment_po2s, inner.segment_publics,
+            inner.segment_extras, pg_air, inner.paging_po2s,
+            paging_pubs_list, [x[0] for x in inner.segment_extras],
+            accel=accel, device=device)
+    except (verifier_mod.VerificationError, ValueError, AssertionError) as e:
+        raise VerificationError(f"succinct receipt: {e}") from e
+    # in-circuit resolve: the root proof already verified every
+    # accelerator batch; extract the claim-pinned IO streams from the
+    # publics (no accelerator STARK checks here)
+    io = {}
+    try:
+        for kind, a_po2, a_pub in (inner.accel_publics or []):
+            io[kind] = accelerator_words(
+                kind, accelerator_module(kind).parse_publics(a_pub))
+    except ValueError as e:
+        raise VerificationError(f"accelerator claim publics: {e}") from e
+    out = rv.verify_chain(
+        inner.segment_publics, claim, inner.image_addrs, inner.image_words,
+        inner.entry_pc, paging_publics_list=paging_pubs_list,
+        keccak_checked="keccak" in io, bigint_checked="bigint" in io,
+        sha_checked="sha" in io)
+    _check_accelerator_io(out, io.get("keccak"), io.get("bigint"),
+                          io.get("sha"))
 
 
 @dataclass
@@ -211,6 +316,13 @@ def accelerator_module(kind: str):
     """The circuit module that proves and verifies batches of `kind`."""
     from .circuits import bigint2, keccak, sha256
     return {"keccak": keccak, "bigint": bigint2, "sha": sha256}[kind]
+
+
+def accelerator_air(kind: str):
+    """The AIR of `kind`'s batch proofs."""
+    from .circuits import bigint2, keccak, sha256
+    return {"keccak": keccak.KeccakAir, "bigint": bigint2.Bigint2Air,
+            "sha": sha256.Sha256Air}[kind]()
 
 
 def _resolve_accelerators(inner, device=None):
@@ -302,7 +414,12 @@ class DevModeProver:
 class LocalProver:
     """Executes, then STARK-proves every segment and every accelerator
     batch on `device` (None: the CUDA card; without one ``prove``
-    raises). The receipt carries the per-segment seals."""
+    raises).
+
+    With ZETH_SUCCINCT=1, additionally lifts every (segment, paging) pair
+    and every accelerator batch into the recursion circuit and joins them
+    to ONE root proof on `device` (succinct receipt); otherwise the
+    receipt carries the per-segment seals."""
 
     name = "local"
 
@@ -313,10 +430,6 @@ class LocalProver:
         from .circuits import rv32im as rv
         from .executor import load_image
         device = resolve_device(self.device)
-        if os.environ.get("ZETH_SUCCINCT", "0") == "1":
-            raise NotImplementedError(
-                "ZETH_SUCCINCT=1: the succinct receipt (recursion lift/join) "
-                "is not ported yet; it waits for the port's recursion slice")
         entry_pc, img_a, img_w = load_image(elf)
         ex = Executor(elf, env.input_bytes,
                       segment_po2=env.segment_limit_po2, trace=True)
@@ -330,18 +443,65 @@ class LocalProver:
         accel = {kind: accelerator_module(kind).prove_batch(
                      *args, device=device)[0]
                  for kind, args in accelerator_batches(ex).items()}
-        inner = SegmentsInner(seals=seals, paging_seals=paging_seals,
-                              image_addrs=img_a,
-                              image_words=img_w, entry_pc=entry_pc,
-                              keccak_seal=accel.get("keccak"),
-                              bigint_seal=accel.get("bigint"),
-                              sha_seal=accel.get("sha"))
+        if os.environ.get("ZETH_SUCCINCT", "0") == "1":
+            inner = _succinct_inner(seals, paging_seals, accel, img_a, img_w,
+                                    entry_pc, device)
+        else:
+            inner = SegmentsInner(seals=seals, paging_seals=paging_seals,
+                                  image_addrs=img_a,
+                                  image_words=img_w, entry_pc=entry_pc,
+                                  keccak_seal=accel.get("keccak"),
+                                  bigint_seal=accel.get("bigint"),
+                                  sha_seal=accel.get("sha"))
         receipt = Receipt(journal=res.journal, claim=claim, inner=inner)
         stats = SessionStats(
             user_cycles=res.user_cycles, paging_cycles=res.paging_cycles,
             total_cycles=res.total_cycles, keccak_calls=res.keccak_calls,
             segments=len(res.segments))
         return ProveInfo(receipt=receipt, stats=stats)
+
+
+def paging_extras(pg_proof) -> tuple:
+    """The companion bindings a segment's lift claim pins, read from its
+    paging proof: (paging main root, d0, d1, g4, g5)."""
+    from .circuits.paging import PagingAir
+    ppg = PagingAir.parse_publics([int(p) for p in pg_proof.publics])
+    return (np.asarray(pg_proof.roots["main"], np.uint64),
+            ppg["d0"], ppg["d1"], ppg["g4"], ppg["g5"])
+
+
+def _succinct_inner(seals, paging_seals, accel_seals, img_a, img_w,
+                    entry_pc, device) -> SuccinctInner:
+    """Lift every (segment, paging) pair and accelerator batch on
+    `device` and join them to ONE root proof."""
+    from .circuits.paging import PagingAir
+    from .circuits.rv32im import Rv32imAir
+    from .recursion import succinct
+    from .zkp import proof as proof_mod
+    proofs = [proof_mod.decode(s) for s in seals]
+    pg_proofs = [proof_mod.decode(s) for s in paging_seals]
+    extras = [paging_extras(pg) for pg in pg_proofs]
+    # in-circuit resolve: lift the accelerator batch proofs into the
+    # fold (their publics get claim-pinned; seals dropped)
+    accel, accel_publics = [], []
+    for kind in ("keccak", "bigint", "sha"):
+        if kind not in accel_seals:
+            continue
+        pf = proof_mod.decode(accel_seals[kind])
+        accel.append((accelerator_air(kind), pf))
+        accel_publics.append((kind, pf.po2, [int(p) for p in pf.publics]))
+    root = succinct.aggregate_segments(
+        Rv32imAir(img_a, img_w), proofs, PagingAir(), pg_proofs, extras,
+        accel=accel, device=device)
+    return SuccinctInner(
+        root_seal=proof_mod.encode(root.proof),
+        segment_publics=[[int(p) for p in pf.publics] for pf in proofs],
+        segment_po2s=[pf.po2 for pf in proofs],
+        segment_extras=extras,
+        paging_po2s=[pf.po2 for pf in pg_proofs],
+        paging_publics=[[int(p) for p in pf.publics] for pf in pg_proofs],
+        image_addrs=img_a, image_words=img_w, entry_pc=entry_pc,
+        accel_publics=accel_publics)
 
 
 def default_prover(device=None):
