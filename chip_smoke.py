@@ -56,12 +56,22 @@ receipts. Phases, each of which exits non-zero on failure:
    bigint guest, each receipt verified and tampered (a forged d0 binding,
    a forged paging public, a flipped root-seal word, a flipped
    accelerator public);
-12. a ``{"kernels": [...]}`` line, the card line, and the final
+12. cli: the port's command line as a user runs it. (a) ``cli
+   validate`` of the smaller fixture block on the host's native EVM
+   engine, which must print the block hash its file is named by; (b)
+   ``cli prove`` of block 101 (tests/fixtures/cli: one segment, a keccak
+   and a sha batch) at the default ``--segment-po2 20`` on the card, which
+   returns 0 only when the receipt verifies against the image ID
+   computed from the guest ELF and the journal equals the block hash;
+   its prove and verify seconds, segments, cycles, leaf launches and
+   peak memory; then a flipped segment-seal word and a flipped
+   keccak-seal word must be rejected;
+13. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, ...}`` line.
 
 The script needs a CUDA card: without one it exits non-zero before any
 result. It imports no jax and nothing of the JAX package (``zeth_tpu``).
-It must finish within 1200 s, the kernels' build included (about 1,000 s
+It must finish within 1200 s, the kernels' build included (about 1,040 s
 on an H100 80GB HBM3 at 700 W): where that needs a cut, the depth of an
 earlier path is cut first (the staged spin prove runs at po2=18, not
 po2=20), never a check.
@@ -72,10 +82,12 @@ from __future__ import annotations
 import contextlib
 import glob
 import hashlib
+import io
 import json
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -798,6 +810,144 @@ def succinct_receipts(dev, card) -> None:
             os.environ["ZETH_SUCCINCT"] = saved
 
 
+@contextlib.contextmanager
+def timed_cli(rows: dict):
+    """Inside, ``BlockProcessor.prove`` and ``Receipt.verify`` are the
+    library's own, timed: the receipt the CLI proved and the seconds of
+    each call go into ``rows``, so the block is proved once."""
+    from zeth_tpu_torch import zkvm
+    from zeth_tpu_torch.app import host
+    prove, verify = host.BlockProcessor.prove, zkvm.Receipt.verify
+
+    def timed_prove(proc, inp, segment_po2=None, device=None):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        receipt = prove(proc, inp, segment_po2, device)
+        torch.cuda.synchronize()
+        rows["prove_s"] = time.time() - t0
+        rows["receipt"] = receipt
+        return receipt
+
+    def timed_verify(receipt, image_id, device=None):
+        t0 = time.time()
+        verify(receipt, image_id, device)
+        rows["verify_s"] = time.time() - t0
+
+    host.BlockProcessor.prove, zkvm.Receipt.verify = timed_prove, timed_verify
+    try:
+        yield
+    finally:
+        host.BlockProcessor.prove, zkvm.Receipt.verify = prove, verify
+
+
+def receipt_po2s(inner) -> tuple:
+    """(segment po2s, {batch kind: po2}) of a segments receipt."""
+    from zeth_tpu_torch.zkp import proof as proof_mod
+    seals = {k: getattr(inner, f"{k}_seal") for k in ("keccak", "bigint",
+                                                       "sha")}
+    return ([proof_mod.decode(s).po2 for s in inner.seals],
+            {k: proof_mod.decode(s).po2 for k, s in seals.items()
+             if s is not None})
+
+
+def run_cli(argv: list) -> tuple:
+    """(exit code, standard output) of the port's CLI, echoed."""
+    from zeth_tpu_torch.app import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    for line in buf.getvalue().splitlines():
+        log(f"[cli] > {line}")
+    return rc, buf.getvalue()
+
+
+def cli_phase(dev, card, tmp: str) -> dict:
+    """12: ``cli validate`` of the smaller fixture block, then ``cli
+    prove`` of block 101 on the card, with two tampers. Returns the leaf
+    launches of the prove run."""
+    from zeth_tpu_torch import kernels, zkvm
+    from zeth_tpu_torch.app import evm
+    from zeth_tpu_torch.app.host import BlockProcessor, StatelessInput
+    from zeth_tpu_torch.zkp import prover
+    # the native engine, built from the checkout by make, outside the timer
+    t0 = time.time()
+    evm.get_lib()
+    log(f"[cli] native EVM engine (zeth_tpu_torch/app/csrc/evm.cpp) built "
+        f"and loaded in {time.time() - t0:.1f} s")
+    # (a) validate, host only, at the block's full size
+    path = sorted(glob.glob(os.path.join(ROOT, "tests", "fixtures",
+                                         "input_0x*.json")),
+                  key=os.path.getsize)[0]
+    with open(path) as f:
+        number = StatelessInput.from_json(json.load(f)).block.number
+    vdir = os.path.join(tmp, "validate")
+    os.makedirs(vdir)
+    shutil.copy(path, vdir)
+    t0 = time.time()
+    rc, out = run_cli(["--cache-dir", vdir, "--block", str(number),
+                       "validate"])
+    validate_s = time.time() - t0
+    want = os.path.basename(path)[len("input_"):-len(".json")]
+    if rc != 0 or f"hash {want}" not in out:
+        raise SystemExit(f"cli validate of block {number} returned {rc}, "
+                         f"expected 0 and the hash {want[:18]}...")
+    log(f"{card} | [cli] validate block {number} ({want[:18]}...): exit 0, "
+        f"hash equals the file's name, {validate_s:.3f} s on the host's "
+        f"native EVM engine")
+    # (b) prove on the card, as a user runs it
+    if os.environ.get("ZETH_DEV_MODE") is not None:
+        raise SystemExit("ZETH_DEV_MODE is set: cli prove would not prove")
+    pdir = os.path.join(tmp, "prove")
+    os.makedirs(pdir)
+    for p in glob.glob(os.path.join(ROOT, "tests", "fixtures", "cli",
+                                    "input_0x*.json")):
+        shutil.copy(p, pdir)
+    rows = {}
+    prover.TIMING = False
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_counts()
+    t0 = time.time()
+    with timed_cli(rows):
+        rc, out = run_cli(["--cache-dir", pdir, "--block", "101", "prove"])
+    torch.cuda.synchronize()
+    cli_s = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if rc != 0 or "receipt verified; journal matches block hash" not in out:
+        raise SystemExit(f"cli prove of block 101 returned {rc}")
+    require_launches(launches, "cli")
+    receipt, st = rows["receipt"], rows["receipt"].stats
+    inner = receipt.inner
+    if inner.kind != "segments" or inner.keccak_seal is None:
+        raise SystemExit("cli prove gave no segments receipt with a keccak "
+                         "seal")
+    po2s, batches = receipt_po2s(inner)
+    log(f"{card} | [cli] prove block 101 at --segment-po2 20: exit 0, "
+        f"prove {rows['prove_s']:.3f} s, verify {rows['verify_s']:.3f} s, "
+        f"cli all {cli_s:.3f} s; {st.segments} segment(s) at po2 {po2s}, "
+        f"{st.user_cycles} user + {st.paging_cycles} paging cycles, "
+        f"{st.keccak_calls} keccak calls, batches (po2) {batches}; "
+        f"{launches['poseidon2_leaf']} leaf launches, peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    image_id = BlockProcessor.for_chain_id(1).image_id()
+    for what, attr in (("segment seal", "seals"),
+                       ("keccak seal", "keccak_seal")):
+        keep = getattr(inner, attr)
+        bad = (keep[0] if attr == "seals" else keep).copy()
+        bad[bad.shape[0] // 2] ^= 1
+        setattr(inner, attr, [bad] + keep[1:] if attr == "seals" else bad)
+        try:
+            receipt.verify(image_id, device=dev)
+        except zkvm.VerificationError as e:
+            log(f"[cli] a flipped {what} word rejected: {str(e)[:120]}")
+        else:
+            raise SystemExit(f"a receipt with a flipped {what} word verified")
+        finally:
+            setattr(inner, attr, keep)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the "
@@ -921,8 +1071,13 @@ def main() -> None:
     succinct_receipts(dev, card)
     succinct_launches = dict(kernels.LAUNCHES)
     require_launches(succinct_launches, "succinct")
+    torch.cuda.empty_cache()
 
-    # 12. results
+    # 12. the CLI: validate a fixture block, prove block 101 on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches = cli_phase(dev, card, tmp)
+
+    # 13. results
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=name, **KERNELS[name], launches=launches[name],
@@ -930,7 +1085,8 @@ def main() -> None:
                                "evm": launches[name],
                                "accel": accel_launches[name],
                                "receipt": receipt_launches[name],
-                               "succinct": succinct_launches[name]},
+                               "succinct": succinct_launches[name],
+                               "cli": cli_launches[name]},
              **results[name]) for name in kernels.NAMES]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

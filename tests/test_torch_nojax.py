@@ -6,6 +6,7 @@ stands in for it: every module of the port, and the chip smoke script,
 must import there, and a small prove must run.
 """
 
+import hashlib
 import os
 import subprocess
 import sys
@@ -60,7 +61,9 @@ def test_every_port_module_imports_without_jax():
                  "recursion.vm",
                  "recursion.witgen_native", "recursion.builder",
                  "recursion.compiler", "recursion.succinct",
-                 "recursion.scheduler"):
+                 "recursion.scheduler", "app.evm", "app.bn254",
+                 "app.preflight", "app.rpc_proxy", "app.cli",
+                 "app.run_parallel", "zkp.groth16"):
         assert "zeth_tpu_torch." + name in names
 
 
@@ -144,6 +147,7 @@ def _default_device_calls():
     import numpy as np
 
     from zeth_tpu_torch import convert, zkvm
+    from zeth_tpu_torch.app.host import BlockProcessor
     from zeth_tpu_torch.circuits import bigint2, keccak, rv32im, sha256
     from zeth_tpu_torch.circuits.toy import SquareChainAir
     from zeth_tpu_torch.executor import Executor, guests, load_image
@@ -159,6 +163,13 @@ def _default_device_calls():
         _, ia, iw = load_image(elf)
         seg = Executor(elf, segment_po2=12, trace=True).run().segments[0]
         return seg, ia, iw
+
+    def receipt():
+        # no seal is read before the device is resolved
+        return zkvm.Receipt(journal=b"", claim=zkvm.ReceiptClaim(
+            image_id=np.zeros(8, np.uint64),
+            journal_digest=hashlib.sha256(b"").digest(), exit_code=0),
+            inner=zkvm.SegmentsInner())
 
     return {
         "to_tensor": lambda: convert.to_tensor(np.arange(4, dtype=np.uint32)),
@@ -187,7 +198,30 @@ def _default_device_calls():
         "compiler.claim_digest": lambda: compiler.claim_digest(9, [1, 2]),
         "compiler.expected_control_root": lambda:
             compiler.expected_control_root(SquareChainAir(), 5),
+        "Receipt.verify": lambda: receipt().verify(np.zeros(8, np.uint64)),
+        "keccak.verify_batch": lambda: keccak.verify_batch(_empty_seal()),
+        "bigint2.verify_batch": lambda: bigint2.verify_batch(_empty_seal()),
+        "sha256.verify_batch": lambda: sha256.verify_batch(_empty_seal()),
+        "BlockProcessor.prove": lambda:
+            BlockProcessor.for_chain_id(1).prove(None),
     }
+
+
+def _empty_seal():
+    """A seal that decodes and holds nothing: the verifier resolves its
+    device before it reads the proof."""
+    import numpy as np
+
+    from zeth_tpu_torch.zkp import fri, proof
+    from zeth_tpu_torch.zkp.prover import StarkProof
+    return proof.encode(StarkProof(
+        air_name="empty", po2=6, publics=[], roots={},
+        taps=np.zeros(0, np.uint64),
+        fri_proof=fri.FriProof(layer_roots=[],
+                               final_coeffs=np.zeros(0, np.uint64),
+                               openings=[[] for _ in range(fri.QUERIES)],
+                               pow_nonce=0),
+        openings={}, query_indices=[]))
 
 
 @pytest.mark.parametrize("entry", ["to_tensor", "grind", "commit_main",
@@ -200,12 +234,17 @@ def _default_device_calls():
                                    "succinct.aggregate_segments",
                                    "succinct.verify_root_segments",
                                    "compiler.claim_digest",
-                                   "compiler.expected_control_root"])
+                                   "compiler.expected_control_root",
+                                   "Receipt.verify", "keccak.verify_batch",
+                                   "bigint2.verify_batch",
+                                   "sha256.verify_batch",
+                                   "BlockProcessor.prove"])
 def test_entry_point_without_device_raises_without_cuda(monkeypatch, entry):
     """The entry points run on the card by default; where there is none
     they raise and do not carry on on the CPU."""
     import torch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("ZETH_DEV_MODE", raising=False)
     with pytest.raises(RuntimeError, match="CUDA device"):
         _default_device_calls()[entry]()
 
@@ -214,3 +253,20 @@ def test_entry_point_runs_on_the_cpu_on_request():
     from zeth_tpu_torch import convert
     assert convert.resolve_device("cpu").type == "cpu"
     assert convert.to_tensor([1, 2], device="cpu").device.type == "cpu"
+
+
+def test_dev_mode_receipt_verifies_without_cuda(monkeypatch):
+    """A dev-mode receipt carries no seal and needs no card to verify."""
+    import numpy as np
+    import torch
+
+    from zeth_tpu_torch import zkvm
+    from zeth_tpu_torch.executor import compute_image_id, guests
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("ZETH_DEV_MODE", "1")
+    elf = guests.sum_loop(10)
+    info = zkvm.default_prover().prove(zkvm.ExecutorEnv.builder().build(), elf)
+    assert isinstance(info.receipt.inner, zkvm.FakeInner)
+    info.receipt.verify(compute_image_id(elf))
+    with pytest.raises(zkvm.VerificationError, match="image id"):
+        info.receipt.verify(np.zeros(8, np.uint64))

@@ -256,3 +256,46 @@ def test_accelerator_guest_receipt_live(kind):
     setattr(receipt.inner, attr, bad)
     with pytest.raises(TZ.VerificationError):
         receipt.verify(compute_image_id(elf), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def keccak_fixture_seal():
+    """The fixture's 2-permutation keccak batch, proved by the port on the
+    CPU and held to the fixture digest (the JAX package's seal)."""
+    from zeth_tpu_torch.circuits import keccak as TK
+    with open(FIXTURE) as f:
+        fx = json.load(f)["keccak"]
+    lanes = np.random.default_rng(fx["seed"]).integers(
+        0, 2**64, (fx["nperm"], 25), dtype=np.uint64)
+    seal, _ = TK.prove_batch(lanes, device="cpu")
+    assert hashlib.sha256(np.asarray(seal, "<u4").tobytes()).hexdigest() \
+        == fx["seal_sha256"]
+    return seal
+
+
+def test_missing_card_is_raised_not_a_rejected_seal(monkeypatch,
+                                                    keccak_fixture_seal):
+    """With no card, resolving a valid accelerator seal, and verifying a
+    segments receipt that carries it, raise the device error: they do not
+    report the receipt as rejected."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    inner = TZ.SegmentsInner(keccak_seal=keccak_fixture_seal)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        TZ._resolve_accelerators(inner)
+    receipt = TZ.Receipt(journal=b"", claim=TZ.ReceiptClaim(
+        image_id=np.zeros(8, np.uint64),
+        journal_digest=hashlib.sha256(b"").digest(), exit_code=0),
+        inner=inner)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        receipt.verify(np.zeros(8, np.uint64))
+
+
+def test_flipped_accelerator_seal_is_rejected(keccak_fixture_seal):
+    seal = keccak_fixture_seal
+    words, big, sha = TZ._resolve_accelerators(
+        TZ.SegmentsInner(keccak_seal=seal), "cpu")
+    assert big is None and sha is None and len(words) == 2 * 100
+    bad = seal.copy()
+    bad[bad.shape[0] // 2] ^= 1
+    with pytest.raises(TZ.VerificationError, match="keccak accelerator seal"):
+        TZ._resolve_accelerators(TZ.SegmentsInner(keccak_seal=bad), "cpu")

@@ -1,14 +1,10 @@
-"""Transaction envelopes: decode RPC JSON, re-encode RLP.
-
-Copy of ``zeth_tpu.app.txs`` without sender recovery (``authority``,
-``recover_sender``, ``sender``), which needs the native secp256k1 of the
-EVM engine that is not carried yet.
+"""Transaction envelopes: decode RPC JSON, re-encode RLP, recover senders.
 
 The reference gets typed-transaction handling from alloy/reth (SURVEY.md
 §2.2 reth-stateless stack); this module implements the envelope types the
 post-merge chain actually carries: legacy (+EIP-155), EIP-2930, EIP-1559
 and EIP-4844. Canonical encodings feed the transactions-root check and
-the signing hashes feed sender recovery.
+the signing hashes feed sender recovery (native secp256k1, app.evm).
 """
 
 from __future__ import annotations
@@ -82,6 +78,13 @@ class Authorization:
         from . import rlp as _rlp
         return keccak256(
             b"\x05" + _rlp.encode([self.chain_id, self.address, self.nonce]))
+
+    def authority(self) -> bytes | None:
+        """Recover the authorizing account (None if the sig is invalid)."""
+        from .evm import ecrecover
+        if self.y_parity not in (0, 1):
+            return None
+        return ecrecover(self.signing_hash(), self.r, self.s, self.y_parity)
 
     def pack(self) -> bytes:
         """125-byte wire entry for the native engine (evm.cpp auth_list)."""
@@ -243,6 +246,28 @@ class Tx:
         else:
             raise ValueError(f"unsupported tx type {self.type}")
         return keccak256(pre), self.v
+
+    def recover_sender(self) -> bytes | None:
+        from .evm import ecrecover
+        h, rec = self.signing_hash()
+        if rec >= 27:
+            rec -= 27
+        if rec not in (0, 1):
+            return None
+        return ecrecover(h, self.r, self.s, rec)
+
+    def sender(self) -> bytes:
+        """RPC-provided sender cross-checked against signature recovery
+        when a signature is present; recovery alone otherwise."""
+        if self.r or self.s:
+            rec = self.recover_sender()
+            if rec is not None:
+                if self.from_field is not None and rec != self.from_field:
+                    raise ValueError("tx sender does not match signature")
+                return rec
+        if self.from_field is not None:
+            return self.from_field
+        raise ValueError("cannot determine tx sender")
 
     # -- fees ---------------------------------------------------------------
 

@@ -184,6 +184,10 @@ class Receipt:
         if isinstance(self.inner, SegmentsInner):
             from .circuits import rv32im as rv
             from .executor import image_id_from_parts
+            # a dev-mode receipt needs no card; a real one resolves its
+            # device before any seal is read, so a missing card raises
+            # instead of reading as a rejected receipt
+            device = resolve_device(device)
             # bind the prover-supplied program image to the claimed image ID
             got = image_id_from_parts(self.inner.entry_pc,
                                       self.inner.image_addrs,
@@ -203,7 +207,7 @@ class Receipt:
             _check_accelerator_io(out, acc_words, big_io, sha_io)
             return
         if isinstance(self.inner, SuccinctInner):
-            _verify_succinct(self.inner, self.claim, device)
+            _verify_succinct(self.inner, self.claim, resolve_device(device))
             return
         raise VerificationError(f"unknown receipt kind: {self.inner!r}")
 
@@ -328,7 +332,10 @@ def accelerator_air(kind: str):
 def _resolve_accelerators(inner, device=None):
     """Verify attached accelerator batch seals (the reference's resolve
     step): returns (keccak_io | None, bigint_io | None, sha_io | None)
-    as the segments' 32-bit word streams."""
+    as the segments' 32-bit word streams. Only the seal's own failures
+    read as a rejection; a device error (no card, out of memory, a
+    failed kernel build) propagates."""
+    from .zkp import verifier as verifier_mod
     out = []
     for kind, seal in (("keccak", inner.keccak_seal),
                        ("bigint", inner.bigint_seal),
@@ -338,7 +345,8 @@ def _resolve_accelerators(inner, device=None):
             continue
         try:
             io = accelerator_module(kind).verify_batch(seal, device)
-        except Exception as e:
+        except (verifier_mod.VerificationError, ValueError,
+                AssertionError) as e:
             raise VerificationError(f"{kind} accelerator seal: {e}") from e
         out.append(accelerator_words(kind, io))
     return tuple(out)
