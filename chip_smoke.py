@@ -22,7 +22,10 @@ receipts. Phases, each of which exits non-zero on failure:
    limbs, one thread), timed alone;
 4. oracle: a small spin segment proved on the card must hash to the seal
    digests in tests/fixtures/torch_port_seals.json (the CPU seals, which
-   tests/test_torch_rv32im.py holds equal to the JAX package's);
+   tests/test_torch_rv32im.py holds equal to the JAX package's), once on
+   the resident path and once with the rv32im main group coset-streamed
+   (``prover.STREAM_MAIN_BYTES`` set to 0 in this process, then restored;
+   the aux group built on the card);
 5. spin: a po2=18 spin segment and its paging proof, untimed inside (as
    a user runs it), the kernels' launch counts read around this run
    alone, verified by ``verify_segments`` against a ``ReceiptClaim`` as
@@ -55,7 +58,12 @@ receipts. Phases, each of which exits non-zero on failure:
    under ``ZETH_SUCCINCT=1`` on a three-segment spin guest and on a
    bigint guest, each receipt verified and tampered (a forged d0 binding,
    a forged paging public, a flipped root-seal word, a flipped
-   accelerator public);
+   accelerator public); the launch counts are read around (a) and (b);
+   (c) after that read, the sha batch's lift of (a) proved again with
+   its main group coset-streamed (the recursion AIR's host aux, the
+   program compiled already), whose seal must equal the resident one
+   word for word. The streamed path's launches are those of (c) and of
+   phase 4's streamed prove, each counted around its own run;
 12. cli: the port's command line as a user runs it. (a) ``cli
    validate`` of the smaller fixture block on the host's native EVM
    engine, which must print the block hash its file is named by; (b)
@@ -71,7 +79,7 @@ receipts. Phases, each of which exits non-zero on failure:
 
 The script needs a CUDA card: without one it exits non-zero before any
 result. It imports no jax and nothing of the JAX package (``zeth_tpu``).
-It must finish within 1200 s, the kernels' build included (about 1,040 s
+It must finish within 1200 s, the kernels' build included (about 760-960 s
 on an H100 80GB HBM3 at 700 W): where that needs a cut, the depth of an
 earlier path is cut first (the staged spin prove runs at po2=18, not
 po2=20), never a check.
@@ -179,41 +187,59 @@ def leaf_bound_ms(rows: int, cols: int) -> tuple:
         "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def check_leaf_kernel(dev, card, P) -> dict:
-    """The leaf kernel against hash_rows at every shape; times at each.
-    A single-row launch is one thread hashing one permutation after
-    another: it is bound by latency, and no throughput bound is given."""
+def leaf_shapes(dev, card, P, gen, shapes, plain_rows=None) -> tuple:
+    """The leaf kernel against hash_rows at each (rows, cols, kernel
+    calls, plain calls) of `shapes`, timed at each. The plain version
+    hashes the first `plain_rows` rows where that is fewer (the whole
+    matrix's int64 state would not fit): then it is held equal there and
+    its time is not the shape's. A single-row launch is one thread
+    hashing one permutation after another: it is bound by latency, and no
+    throughput bound is given. Returns (max_abs_err, one dict per shape)."""
     from zeth_tpu_torch.hash import poseidon2 as P2
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(20)
-    worst, shapes = 0, []
-    for rows_n, cols, reps, plain_reps in LEAF_SHAPES:
+    worst, out = 0, []
+    for rows_n, cols, reps, plain_reps in shapes:
         rows = torch.randint(0, P, (rows_n, cols), dtype=torch.int32,
                              device=dev, generator=gen)
+        part = rows[:plain_rows] if plain_rows else rows
+        whole = part.shape[0] == rows_n
         # warm both up, except the plain version where one call takes
         # seconds (it has nothing to compile)
         P2.leaf_hash(rows)
         if plain_reps > 1:
-            P2.hash_rows(rows)
+            P2.hash_rows(part)
         torch.cuda.synchronize()
         got, ms = cuda_ms(lambda: P2.leaf_hash(rows), reps)
-        want, plain_ms = cuda_ms(lambda: P2.hash_rows(rows), plain_reps)
-        err = int((got.long() - want.long()).abs().max())
-        if got.shape != (rows_n, 8) or not torch.equal(got, want):
+        want, plain_ms = cuda_ms(lambda: P2.hash_rows(part), plain_reps)
+        err = int((got[:part.shape[0]].long() - want.long()).abs().max())
+        if got.shape != (rows_n, 8) or not torch.equal(
+                got[:part.shape[0]], want):
             raise SystemExit(f"poseidon2_leaf disagrees with hash_rows at "
                              f"{(rows_n, cols)}: max_abs_err {err}")
         worst = max(worst, err)
         bound, by = leaf_bound_ms(rows_n, cols) if rows_n > 1 \
             else (None, "latency")
-        shapes.append({"rows": rows_n, "cols": cols, "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bound,
-                       "bound_by": by})
-        log(f"{card} | [kernels] poseidon2_leaf ({rows_n}, {cols}): equal, "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        out.append({"rows": rows_n, "cols": cols, "ms": ms,
+                    "plain_ms": plain_ms if whole else None,
+                    "bound_ms": bound, "bound_by": by})
+        log(f"{card} | [kernels] poseidon2_leaf ({rows_n}, {cols}): equal"
+            + ("" if whole else f" on the first {part.shape[0]} rows")
+            + f", kernel {ms:.3f} ms, plain "
+            + (f"{plain_ms:.3f} ms" if whole else "not measured")
+            + ", bound "
             + (f"{bound:.3f} ms by {by}" if bound is not None
                else "none (one thread: latency)"))
-        del rows, got, want
+        del rows, part, got, want
         torch.cuda.empty_cache()
+    return worst, out
+
+
+def check_leaf_kernel(dev, card, P) -> dict:
+    """The leaf kernel against hash_rows at every shape of LEAF_SHAPES,
+    then timed on the bigint claims row."""
+    from zeth_tpu_torch.hash import poseidon2 as P2
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    worst, shapes = leaf_shapes(dev, card, P, gen, LEAF_SHAPES)
     # the bigint claims row: its digest is held by the accel phase
     row = torch.randint(0, P, (1, CLAIMS_ROW), dtype=torch.int32,
                         device=dev, generator=gen)
@@ -400,6 +426,40 @@ def same_seals(a, b) -> bool:
     return all(np.array_equal(x, y) for x, y in zip(a, b))
 
 
+@contextlib.contextmanager
+def main_streamed(on: bool):
+    """Inside, with `on`, every main group that is not pre-committed is
+    coset-streamed (``prover.STREAM_MAIN_BYTES`` = 0); restored after."""
+    from zeth_tpu_torch.zkp import prover
+    keep = prover.STREAM_MAIN_BYTES
+    if on:
+        prover.STREAM_MAIN_BYTES = 0
+    try:
+        yield
+    finally:
+        prover.STREAM_MAIN_BYTES = keep
+
+
+@contextlib.contextmanager
+def path_counters(dev):
+    """The seconds (ending in a synchronise), leaf launches and peak
+    device memory of what runs inside, in the dict it yields (and every
+    kernel's launches as "counts"); the launch counts are set to 0 just
+    before and read just after."""
+    from zeth_tpu_torch import kernels
+    got = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_counts()
+    t0 = time.time()
+    yield got
+    torch.cuda.synchronize()
+    got["s"] = time.time() - t0
+    got["counts"] = dict(kernels.LAUNCHES)
+    got["launches"] = got["counts"]["poseidon2_leaf"]
+    got["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+
+
 def fixture_batches(fx) -> dict:
     """The fixture's small accelerator batches, as prove_batch takes them
     (the same construction as tests/test_torch_accel_airs.py)."""
@@ -568,13 +628,15 @@ def recursion_proof(dev, card, kind, what, prove) -> tuple:
     timers on. Prints its program rows, recursion po2, the seconds of the
     host compile, the native interpreter, the control trace, the host
     LogUp aux and the prove, its leaf launches and the peak device
-    memory. Returns (RecReceipt, that row)."""
+    memory (and, as ``prior_peak_gib``, the peak before it, whose counter
+    it resets). Returns (RecReceipt, that row)."""
     from zeth_tpu_torch import kernels
     from zeth_tpu_torch.zkp import prover
     before = kernels.LAUNCHES["poseidon2_leaf"]
     prover.TIMING = True
     prover.STAGE_LOG.clear()
     torch.cuda.synchronize()
+    prior = torch.cuda.max_memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
     rec = prove()
@@ -592,7 +654,8 @@ def recursion_proof(dev, card, kind, what, prove) -> tuple:
            "aux_s": stages["aux witgen (host)"],
            "prove_s": stages["recursion prove"], "total_s": total,
            "launches": kernels.LAUNCHES["poseidon2_leaf"] - before,
-           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "prior_peak_gib": prior / 2**30}
     log(f"{card} | [succinct] {kind} {what}: {row['rows']} program rows, "
         f"recursion po2={row['po2']}; compile {row['compile_s']:.3f} s, "
         f"interpreter {row['witgen_s']:.3f} s, control trace "
@@ -632,6 +695,8 @@ def timed_recursion(dev, card, rows: list):
         rec, row = recursion_proof(
             dev, card, "lift", what,
             lambda: lift(inner_air, inner_proof, extra, device))
+        row["air"] = inner_air.name
+        row["receipt"] = rec
         rows.append(row)
         return rec
 
@@ -712,6 +777,27 @@ def succinct_main(dev, card, seal, pg_seal, ia, iw, accel_seals) -> list:
     must_reject("a d0 binding changed by one",
                 lambda: verify(root, forged))
     return rows
+
+
+def streamed_sha_lift(dev, card, resident_seal, sha_seal) -> dict:
+    """11c: the sha batch's lift of 11a proved again with its main group
+    coset-streamed (the recursion AIR's host aux, its program compiled
+    already); the seal must equal 11a's `resident_seal` word for word.
+    Returns its launches, counted around this run alone."""
+    from zeth_tpu_torch import zkvm
+    from zeth_tpu_torch.recursion import succinct
+    from zeth_tpu_torch.zkp import proof as proof_mod
+    with main_streamed(True), path_counters(dev) as got:
+        streamed = succinct.lift(zkvm.accelerator_air("sha"),
+                                 proof_mod.decode(sha_seal), device=dev)
+    if not np.array_equal(proof_mod.encode(streamed.proof), resident_seal):
+        raise SystemExit("the streamed sha lift's seal differs from the "
+                         "resident one")
+    log(f"{card} | [streamed] sha lift (recursion po2="
+        f"{streamed.proof.po2}) again with its main group coset-streamed: "
+        f"the same seal word for word; {got['s']:.3f} s, {got['launches']} "
+        f"leaf launches, peak device memory {got['peak_gib']:.2f} GiB")
+    return got["counts"]
 
 
 def succinct_receipts(dev, card) -> None:
@@ -841,8 +927,12 @@ def timed_cli(rows: dict):
 
 
 def receipt_po2s(inner) -> tuple:
-    """(segment po2s, {batch kind: po2}) of a segments receipt."""
+    """(segment po2s, {batch kind: po2}) of a segments or succinct
+    receipt."""
     from zeth_tpu_torch.zkp import proof as proof_mod
+    if hasattr(inner, "root_seal"):
+        return (list(inner.segment_po2s),
+                {kind: po2 for kind, po2, _ in inner.accel_publics})
     seals = {k: getattr(inner, f"{k}_seal") for k in ("keccak", "bigint",
                                                        "sha")}
     return ([proof_mod.decode(s).po2 for s in inner.seals],
@@ -953,9 +1043,10 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device; this script runs the "
                          "port on a GPU only")
     dev = torch.device("cuda", 0)
-    from zeth_tpu_torch import kernels
+    from zeth_tpu_torch import kernels, zkvm
     from zeth_tpu_torch.circuits import rv32im
     from zeth_tpu_torch.hostmath import P
+    from zeth_tpu_torch.zkp import proof as proof_mod
     from zeth_tpu_torch.zkp import prover
     t_start = time.time()
 
@@ -979,13 +1070,22 @@ def main() -> None:
         fixture = json.load(f)
     fx = fixture["spin"]
     seg, ia, iw, _, _ = spin_segment(fx["spin_iters"], fx["segment_po2"])
-    t0 = time.time()
-    seal, pg_seal = rv32im.prove_segment(seg, ia, iw, device=dev)
-    torch.cuda.synchronize()
-    if (sha(seal), sha(pg_seal)) != (fx["seal_sha256"], fx["paging_sha256"]):
-        raise SystemExit("small-po2 seals differ from the fixture digests")
-    log(f"[oracle] spin({fx['spin_iters']}) po2={fx['po2']}: seal and paging "
-        f"seal equal the fixture digests ({time.time() - t0:.1f} s)")
+    streamed_runs = {}
+    for streamed in (False, True):
+        how = "coset-streamed" if streamed else "resident"
+        with main_streamed(streamed), path_counters(dev) as got:
+            seal, pg_seal = rv32im.prove_segment(seg, ia, iw, device=dev)
+        if (sha(seal), sha(pg_seal)) != (fx["seal_sha256"],
+                                         fx["paging_sha256"]):
+            raise SystemExit(f"small-po2 seals ({how} main group) differ "
+                             "from the fixture digests")
+        log(f"{card} | [oracle] spin({fx['spin_iters']}) po2={fx['po2']}, "
+            f"main group {how}: seal and paging seal equal the fixture "
+            f"digests; "
+            f"{got['s']:.3f} s, {got['launches']} leaf launches, peak "
+            f"device memory {got['peak_gib']:.3f} GiB")
+        if streamed:
+            streamed_runs["spin"] = got["counts"]
 
     # 5. the spin path: one halting segment (bench.py's guest sizing) at
     # SPIN_PO2, proved as a user calls it, with no stage timer
@@ -1065,12 +1165,26 @@ def main() -> None:
     # 11. the recursion: segment 0 and the block's keccak and sha batches
     # folded to one root proof, then succinct receipts
     kernels.reset_counts()
-    succinct_main(dev, card, seals[0], pg_seals[0], ia, iw, accel_seals)
-    del seals, pg_seals, accel_seals
+    rec_rows = succinct_main(dev, card, seals[0], pg_seals[0], ia, iw,
+                             accel_seals)
+    sha_name = zkvm.accelerator_air("sha").name
+    sha_lift_seal = proof_mod.encode(next(
+        r["receipt"] for r in rec_rows if r.get("air") == sha_name).proof)
+    del seals, pg_seals, rec_rows
     torch.cuda.empty_cache()
     succinct_receipts(dev, card)
     succinct_launches = dict(kernels.LAUNCHES)
     require_launches(succinct_launches, "succinct")
+    # the streamed path's second run, counted alone like phase 4's
+    streamed_runs["sha lift"] = streamed_sha_lift(
+        dev, card, sha_lift_seal, accel_seals["sha"])
+    del accel_seals
+    for what, counts in streamed_runs.items():
+        require_launches(counts, f"streamed {what}")
+    streamed_launches = {name: sum(c[name] for c in streamed_runs.values())
+                         for name in kernels.NAMES}
+    log(f"{card} | [streamed] launches of the streamed runs "
+        f"{streamed_runs}")
     torch.cuda.empty_cache()
 
     # 12. the CLI: validate a fixture block, prove block 101 on the card
@@ -1086,7 +1200,8 @@ def main() -> None:
                                "accel": accel_launches[name],
                                "receipt": receipt_launches[name],
                                "succinct": succinct_launches[name],
-                               "cli": cli_launches[name]},
+                               "cli": cli_launches[name],
+                               "streamed": streamed_launches[name]},
              **results[name]) for name in kernels.NAMES]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -67,6 +67,36 @@ def test_every_port_module_imports_without_jax():
         assert "zeth_tpu_torch." + name in names
 
 
+def test_port_tools_import_no_jax():
+    """The port's scripts (tools/torch_*.py) import no jax and no zeth_tpu,
+    at the top or inside a function (they need a card to run), and load
+    in the blocked interpreter."""
+    import ast
+    import glob
+    paths = sorted(glob.glob(os.path.join(ROOT, "tools", "torch_*.py")))
+    assert len(paths) >= 2
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module]
+            else:
+                continue
+            for m in mods:
+                assert m.split(".")[0] not in ("jax", "jaxlib", "zeth_tpu"), \
+                    f"{os.path.basename(path)} imports {m}"
+    _run("""
+        import glob, importlib.util, os
+        for path in sorted(glob.glob("tools/torch_*.py")):
+            spec = importlib.util.spec_from_file_location(
+                os.path.basename(path)[:-3], path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    """)
+
+
 def test_stateless_guest_builds_and_runs_without_jax():
     """The EVM segment's front end, as the card's machine runs it: build
     the guest ELF, encode the smaller fixture block, execute untraced."""

@@ -29,6 +29,11 @@ from .hostmath import BETA, P, R, R2, RINV, ROU_FWD, ROU_REV  # noqa: F401
 I32 = torch.int32
 I64 = torch.int64
 
+# int64 temporaries of one chunk of a device pass hold about this many
+# elements (each chunk's int64 working set is a few times this in bytes).
+# The prover's column, row and Merkle pair-level chunks all derive from it.
+CHUNK_ELEMS = 1 << 28
+
 
 def _l(x):
     """int64 view of a tensor (python ints pass through)."""

@@ -3,9 +3,9 @@
 Counterpart of ``zeth_tpu.hash.merkle``. Leaves are committed in natural
 row order; layer k holds 2^k digests, the root is layer 0, node i's
 children are 2i and 2i+1. The leaf digests come from ``leaf_hash`` (the
-CUDA kernel for a CUDA matrix), each level above them is one batched
-``hash_pairs`` on the device, and levels of at most ``HOST_LEVELS_AT``
-digests finish on the host in numpy. Queried-path opening gathers only
+CUDA kernel for a CUDA matrix), each level above them is hashed on the
+device by ``hash_pairs`` in chunks of pairs, and levels of at most
+``HOST_LEVELS_AT`` digests finish on the host in numpy. Queried-path opening gathers only
 the needed digests; verification runs on the host.
 """
 
@@ -16,6 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import field as F
 from .. import hostmath as H
 from . import poseidon2 as P2
 
@@ -96,11 +97,25 @@ def commit_digests(digests) -> MerkleTree:
 HOST_LEVELS_AT = 1024
 
 
+def _hash_level(cur):
+    """The level above `cur` (2m, 8) -> (m, 8), in chunks of pairs: one
+    ``hash_pairs`` call holds a (24, pairs) int64 state and the
+    permutation's temporaries, so a whole level of 2^25 pairs (a po2=24
+    LDE's tree) would need tens of GiB at once."""
+    m = cur.shape[0] // 2
+    pairs = F.CHUNK_ELEMS // 64
+    out = torch.empty((m, cur.shape[1]), dtype=cur.dtype, device=cur.device)
+    for i in range(0, m, pairs):
+        blk = cur[2 * i:2 * (i + pairs)]
+        out[i:i + blk.shape[0] // 2] = P2.hash_pairs(blk[0::2], blk[1::2])
+    return out
+
+
 def _build_layers_from_digests(digests) -> list:
     layers = [digests]
     cur = digests
     while cur.shape[0] > HOST_LEVELS_AT:
-        cur = P2.hash_pairs(cur[0::2], cur[1::2])
+        cur = _hash_level(cur)
         layers.append(cur)
     if cur.shape[0] > 1:
         layers.extend(_host_levels(cur.cpu().numpy().view(np.uint32)))

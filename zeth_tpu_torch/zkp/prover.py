@@ -1,7 +1,7 @@
 """DEEP-ALI STARK prover: the heavy math on a torch device, transcript on host.
 
-Counterpart of the resident single-device path of
-``zeth_tpu.zkp.prover.prove`` (PROTOCOL.md). Stage structure:
+Counterpart of the single-device path of ``zeth_tpu.zkp.prover.prove``
+(PROTOCOL.md). Stage structure:
 
   commit control/main/aux groups  (coset LDE + batched Poseidon2 Merkle)
   -> constraint quotient Q = mix(C_i)/Z on the LDE domain (level tape)
@@ -10,14 +10,17 @@ Counterpart of the resident single-device path of
   -> DEEP combination polynomial -> FRI (zeth_tpu_torch.zkp.fri)
   -> Merkle openings of every group at the FRI query indices.
 
-Every group's LDE stays resident as an int32 tensor (the po2=20 rv32im
-main LDE is ~17 GB, which an 80 GB card holds); int64 temporaries are
-bounded by working on column or row chunks. An AIR with a
-``build_aux_device`` gets its aux group built on the device from the
-standard-form main and control tensors, which stay until that stage. The
-reference's mesh path, bit-packed upload, coset-streamed main group and MXU
-kernels have no counterpart here. Seals equal the reference's word for
-word.
+Every group's LDE stays resident as an int32 tensor, except a main group
+whose LDE exceeds ``STREAM_MAIN_BYTES``: that one is coset-streamed (its
+shifted coefficients stay resident and each coset's evaluations are
+recomputed where a stage needs them, as the reference streams it).
+int64 temporaries are bounded by working on column or row chunks, all
+sized from ``field.CHUNK_ELEMS`` (the Merkle pair levels too). An AIR
+with a ``build_aux_device`` gets its aux group built on the device from
+the standard-form main and control tensors, which stay until that
+stage. The reference's mesh path,
+bit-packed upload and MXU kernels have no counterpart here. Seals equal
+the reference's word for word.
 """
 
 from __future__ import annotations
@@ -46,9 +49,6 @@ BLOWUP = fri.BLOWUP
 TAP_STREAMS = [("control", 0), ("main", 0), ("aux", 0), ("check", 0),
                ("control", 1), ("main", 1), ("aux", 1)]
 
-# int64 temporaries of one LDE / reduction chunk hold about this many
-# elements (each chunk's int64 working set is a few times this in bytes)
-CHUNK_ELEMS = 1 << 28
 
 
 @dataclass
@@ -73,11 +73,16 @@ class StarkProof:
 
 TIMING = os.environ.get("ZETH_TIMING", "0") == "1"
 STAGE_LOG: list = []          # (stage name, seconds) while TIMING is on
+# (stage name, the device's peak allocation so far in bytes) at the end of
+# each stage on a CUDA device while TIMING is on: the first stage whose
+# value reaches a run's peak is the one that set it
+STAGE_PEAKS: list = []
 
 
 class _Stage:
     """Context timer. With TIMING on it synchronizes the device at the
-    stage's end and records (name, seconds) in STAGE_LOG."""
+    stage's end and records (name, seconds) in STAGE_LOG, and on a CUDA
+    device (name, peak bytes so far) in STAGE_PEAKS."""
 
     def __init__(self, name, device=None):
         self.name = name
@@ -91,6 +96,8 @@ class _Stage:
             return
         if self.device is not None and torch.device(self.device).type == "cuda":
             torch.cuda.synchronize(self.device)
+            STAGE_PEAKS.append(
+                (self.name, torch.cuda.max_memory_allocated(self.device)))
         dt = time.time() - self.t0
         STAGE_LOG.append((self.name, dt))
         print(f"[prover] {self.name}: {dt:.2f}s", file=sys.stderr, flush=True)
@@ -188,18 +195,23 @@ def _lde_group(trace_monty):
     return coeffs, ntt.ntt(padded)
 
 
+def _by_columns(fn, x, rows_out: int):
+    """fn over column chunks of x, each result (rows_out, w) int32 holding
+    about F.CHUNK_ELEMS elements, written into one (rows_out, c) tensor."""
+    c = x.shape[1]
+    out = torch.empty((rows_out, c), dtype=torch.int32, device=x.device)
+    w = max(1, F.CHUNK_ELEMS // rows_out)
+    for off in range(0, c, w):
+        out[:, off:off + w] = fn(x[:, off:off + w])
+    return out
+
+
 def _lde(dev, std: bool):
     """Column-chunked LDE of an (n, c) tensor (standard form if `std`,
     else Montgomery) into a resident (4n, c) Montgomery tensor."""
-    n, c = dev.shape
-    out = torch.empty((BLOWUP * n, c), dtype=torch.int32, device=dev.device)
-    w = max(1, CHUNK_ELEMS // (BLOWUP * n))
-    for off in range(0, c, w):
-        chunk = dev[:, off:off + w]
-        m = F.to_monty(chunk) if std else chunk.contiguous()
-        out[:, off:off + w] = _lde_group(m)[1]
-        del m
-    return out
+    return _by_columns(
+        lambda ch: _lde_group(F.to_monty(ch) if std else ch.contiguous())[1],
+        dev, BLOWUP * dev.shape[0])
 
 
 def commit_main(air: Air, main_std: np.ndarray, device=None):
@@ -215,16 +227,84 @@ def commit_main(air: Air, main_std: np.ndarray, device=None):
     return tree.root, (dev, lde, tree)
 
 
+# -- streamed main group ------------------------------------------------------
+#
+# Above STREAM_MAIN_BYTES the main group's blowup-4 LDE is never formed:
+# the g-shifted coefficients (n, c) stay resident (a quarter of the LDE)
+# and one coset's evaluations are recomputed where a stage needs them.
+# The LDE domain g*<w_4n> is the union of the 4 cosets g*w_4n^r*<w_n>,
+# and LDE row 4k+r is coset r at position k. The Merkle leaves hash coset
+# by coset and interleave; the check polynomial evaluates coset by coset
+# (tape stride 1, the control and aux groups as strided views); the taps
+# and the DEEP mix read only coset 0 (the stride-4 rows); each queried
+# row is read from its recomputed coset. Seals equal the resident path's.
+
+# The po2=24 recursion main LDE (2^26 x 84 int32, 21.0 GiB) streams: with
+# it resident the groups and trees of that proof hold ~71.5 GiB of the
+# card's 80 GB before any transient. The po2=20 rv32im main LDE (2^22 x
+# 1,009, 15.8 GiB) stays resident, as EVM segments have always proved
+# (peak ~26 GiB); so do every smaller group and a pre-committed main.
+STREAM_MAIN_BYTES = 18 << 30
+
+
+def _shifted_coeffs(dev_std):
+    """(n, c) standard-form trace -> (n, c) Montgomery coefficients of
+    f(g*x), column-chunked."""
+    n = dev_std.shape[0]
+    sp = ntt.power_table(GENERATOR, n, dev_std.device)[:, None]
+    return _by_columns(lambda ch: F.mul_std(ntt.intt(F.to_monty(ch)), sp),
+                       dev_std, n)
+
+
+def _coset_eval(coeffs1, r: int, n: int):
+    """Coset r's evaluations of the columns whose shifted coefficients are
+    `coeffs1`: (n, c) Montgomery, equal to LDE rows 4k+r."""
+    wr = pow(H.rou_fwd(BLOWUP * n), r, P)
+    rp = ntt.power_table(wr, n, coeffs1.device)[:, None]
+    return _by_columns(lambda ch: ntt.ntt(F.mul_std(ch, rp)), coeffs1, n)
+
+
+def _interleave4(parts):
+    """4 x (n, k) per-coset arrays -> (4n, k) in natural LDE order."""
+    n, k = parts[0].shape
+    return torch.stack(tuple(parts), dim=1).reshape(BLOWUP * n, k)
+
+
+def _coset_rows(lde, r: int):
+    """Rows 4k+r of a resident (4n, c) LDE: coset r, as a strided view."""
+    return lde[r::BLOWUP]
+
+
+def _coset_query_rows(coeffs1, n: int, qs):
+    """Standard-form rows at LDE indices `qs` of the streamed main group:
+    each coset that holds a query is recomputed, its rows gathered and
+    freed (a field value is unique, so these are the LDE's words)."""
+    qa = np.asarray(qs, np.int64)
+    rows = np.zeros((qa.shape[0], coeffs1.shape[1]), np.uint64)
+    for r in range(BLOWUP):
+        sel = np.nonzero(qa % BLOWUP == r)[0]
+        if sel.size == 0:
+            continue
+        ev = _coset_eval(coeffs1, r, n)
+        idx = torch.as_tensor(qa[sel] // BLOWUP, device=coeffs1.device)
+        rows[sel] = _host_std(ev.index_select(0, idx))
+        del ev
+    return rows
+
+
 # -- check group -------------------------------------------------------------------
 
 
 def _finish_check(acc, n: int):
     """acc (4n, 4) alpha-mix -> (n, 16) check columns (evaluations on H)."""
     dev = acc.device
-    zinv = torch.tensor(_zinv_std(n), dtype=torch.int64, device=dev)
-    q_evals = F.mul_std(acc, zinv.repeat(n)[:, None])          # (4n, 4)
+    m = BLOWUP * n
+    # 1/(x^n - 1) is 4-periodic on the LDE coset
+    zinv = torch.tensor(_zinv_std(n), dtype=torch.int64,
+                        device=dev)[None, :, None]
+    q_evals = F.mul_std(acc.reshape(n, BLOWUP, 4), zinv).reshape(m, 4)
     qc = ntt.intt(q_evals)                                     # coset iNTT
-    sinv = ntt.power_table(pow(GENERATOR, P - 2, P), BLOWUP * n, dev)
+    sinv = ntt.power_table(pow(GENERATOR, P - 2, P), m, dev)
     qc = F.mul_std(qc, sinv[:, None])
     # split: 4 slices (k) x 4 ext components -> (n, 16), col = 4k + comp
     cols = qc.reshape(BLOWUP, n, 4).transpose(0, 1).reshape(n, 16)
@@ -233,9 +313,8 @@ def _finish_check(acc, n: int):
     return ntt.ntt(cols.contiguous())
 
 
-def _check_group(air: Air, ldes: dict, alpha: np.ndarray, publics,
-                 challenges, n: int):
-    """Build the check group: Q = mix(C_i)/Z split into 16 base columns."""
+def _check_tape(air: Air, alpha: np.ndarray, publics):
+    """The AIR's constraint tape, its scalar publics and alpha's powers."""
     register_air(air)
     pubs_s = scalar_publics(air, publics)
     tp = _tape_program(air.name, len(pubs_s))
@@ -243,7 +322,13 @@ def _check_group(air: Air, ldes: dict, alpha: np.ndarray, publics,
     # D gives deg(Q) <= D(n-1) - n <= 4n-1 exactly when D <= BLOWUP+1
     assert tp.max_degree <= BLOWUP + 1, \
         f"constraint degree {tp.max_degree} exceeds blowup+1 = {BLOWUP + 1}"
-    alpha_pows = H.ext_powers(alpha, tp.n_stage)
+    return tp, pubs_s, H.ext_powers(alpha, tp.n_stage)
+
+
+def _check_group(air: Air, ldes: dict, alpha: np.ndarray, publics,
+                 challenges, n: int):
+    """Build the check group: Q = mix(C_i)/Z split into 16 base columns."""
+    tp, pubs_s, alpha_pows = _check_tape(air, alpha, publics)
     dev = next(iter(ldes.values())).device
     with _Stage(f"  constraint tape ({tp.ops.shape[0]} ops, "
                 f"{tp.n_stage} constraints)", dev):
@@ -251,22 +336,46 @@ def _check_group(air: Air, ldes: dict, alpha: np.ndarray, publics,
     return _finish_check(acc, n)
 
 
+def _check_group_streamed(air: Air, coeffs1, ldes: dict, alpha: np.ndarray,
+                          publics, challenges, n: int):
+    """_check_group with a streamed main group: the tape evaluates coset
+    by coset (stride 1) and the four alpha-mixes interleave back into LDE
+    order, so Q is the resident path's word for word."""
+    tp, pubs_s, alpha_pows = _check_tape(air, alpha, publics)
+    parts = []
+    with _Stage(f"  constraint tape, 4 cosets ({tp.ops.shape[0]} ops, "
+                f"{tp.n_stage} constraints)", coeffs1.device):
+        for r in range(BLOWUP):
+            sub = {"main": _coset_eval(coeffs1, r, n)}
+            for g in ("control", "aux"):
+                if ldes[g].shape[1]:
+                    sub[g] = _coset_rows(ldes[g], r)
+            parts.append(tape.eval_check(tp, sub, pubs_s, challenges,
+                                         alpha_pows, stride=1))
+            del sub
+        acc = _interleave4(parts)
+    del parts
+    return _finish_check(acc, n)
+
+
 # -- DEEP taps and combination --------------------------------------------------
 
 
-def _rows_dot(rows, w):
-    """sum_k rows[4k, c] * w[k, e] (Montgomery) -> (c, e).
+def _rows_dot(rows, w, stride: int = BLOWUP):
+    """sum_k rows[stride*k, c] * w[k, e] (Montgomery) -> (c, e).
 
-    rows: (4n, c) Montgomery LDE; w: (n, e) Montgomery. Products are
-    reduced per term and summed in int64 (exact: the order of the
-    additions does not matter), then scaled by R^-1 once."""
+    rows: (stride*n, c) Montgomery -- a (4n, c) LDE read at its stride-4
+    rows, or (stride 1) one coset's (n, c) evaluations; w: (n, e)
+    Montgomery. Products are reduced per term and summed in int64 (exact:
+    the order of the additions does not matter), then scaled by R^-1
+    once."""
     c = rows.shape[1]
     n, e = w.shape
-    chunk = max(1, min(n, CHUNK_ELEMS // 4 // max(c * e, 1)))
+    chunk = max(1, min(n, F.CHUNK_ELEMS // 4 // max(c * e, 1)))
     acc = torch.zeros((c, e), dtype=torch.int64, device=rows.device)
     for k0 in range(0, n, chunk):
         k1 = min(n, k0 + chunk)
-        r = rows[BLOWUP * k0:BLOWUP * k1:BLOWUP].to(torch.int64)
+        r = rows[stride * k0:stride * k1:stride].to(torch.int64)
         t = r[:, :, None] * w[k0:k1].to(torch.int64)[:, None, :]
         acc += torch.fmod(t, P).sum(dim=0)
         del r, t
@@ -274,16 +383,26 @@ def _rows_dot(rows, w):
 
 
 def _point_inverses(x_pows, z_monty):
-    """ext inverse of (x_i - z) for all LDE points. x_pows: (4n,) base."""
-    diff0 = F.sub(x_pows, z_monty[0])
-    rest = F.neg(z_monty[1:]).expand(x_pows.shape[0], 3)
-    return F.ext_inv(torch.cat([diff0[:, None], rest], dim=1))
+    """ext inverse of (x_i - z) for all LDE points. x_pows: (4n,) base.
+    Row-chunked: a few dozen (rows,) int64 temporaries per chunk."""
+    m = x_pows.shape[0]
+    rows = F.CHUNK_ELEMS // 64
+    out = torch.empty((m, 4), dtype=torch.int32, device=x_pows.device)
+    for i in range(0, m, rows):
+        x = x_pows[i:i + rows]
+        diff0 = F.sub(x, z_monty[0])
+        rest = F.neg(z_monty[1:]).expand(x.shape[0], 3)
+        out[i:i + x.shape[0]] = F.ext_inv(
+            torch.cat([diff0[:, None], rest], dim=1))
+    return out
 
 
-def _taps_fused(groups, z_m, zg_m, n: int):
+def _taps_fused(groups, z_m, zg_m, n: int, strides):
     """Every DEEP tap plus the (x - z)^-1 tables.
 
-    groups: (4n, c) Montgomery LDEs. Returns (per-group (c, 8) Montgomery
+    groups: Montgomery row arrays, each read at its stride in `strides`
+    ((4n, c) LDEs at stride 4; the streamed main group's coset-0
+    evaluations (n, c) at stride 1). Returns (per-group (c, 8) Montgomery
     tap values ([:, :4] at z, [:, 4:] at z*w_n), inv_z, inv_zg); the
     inverse tables are reused by the DEEP combination. On the coset gH of
     size 4n: f(z) = K(z) * sum_i f(x_i) * x_i / (z - x_i) with
@@ -308,28 +427,31 @@ def _taps_fused(groups, z_m, zg_m, n: int):
 
     bw_pair = torch.cat([bary(z_m, inv_z[::4]), bary(zg_m, inv_zg[::4])],
                         dim=1)
-    outs = tuple(_rows_dot(lde, bw_pair) for lde in groups)
+    outs = tuple(_rows_dot(rows, bw_pair, st)
+                 for rows, st in zip(groups, strides))
     return outs, inv_z, inv_zg
 
 
-def _deep_mix_s4(groups, bps_z, n_zg_groups: int):
+def _deep_mix_s4(groups, bps_z, n_zg_groups: int, strides):
     """Beta-mixes of all committed columns on the stride-4 subdomain.
 
     mix_z(x) = sum_c beta^c f_c(x) is itself a degree-<n polynomial, so
-    the n stride-4 LDE rows determine it. Returns (n, 8): [:, :4] = mix
-    over all groups, [:, 4:] = mix over the first n_zg_groups."""
-    n = groups[0].shape[0] // BLOWUP
+    the n stride-4 LDE rows determine it. Each group is read at its
+    stride (1: the streamed main group's coset-0 evaluations). Returns
+    (n, 8): [:, :4] = mix over all groups, [:, 4:] = mix over the first
+    n_zg_groups."""
+    n = groups[0].shape[0] // strides[0]
     dev = groups[0].device
     acc_z = torch.zeros((n, 4), dtype=torch.int64, device=dev)
     acc_pre = torch.zeros((n, 4), dtype=torch.int64, device=dev)
-    for gi, (cat, bz) in enumerate(zip(groups, bps_z)):
+    for gi, (cat, bz, st) in enumerate(zip(groups, bps_z, strides)):
         c = cat.shape[1]
         b64 = bz.to(torch.int64)
-        chunk = max(1, min(n, CHUNK_ELEMS // 4 // max(c * 4, 1)))
+        chunk = max(1, min(n, F.CHUNK_ELEMS // 4 // max(c * 4, 1)))
         s = torch.empty((n, 4), dtype=torch.int64, device=dev)
         for k0 in range(0, n, chunk):
             k1 = min(n, k0 + chunk)
-            r = cat[BLOWUP * k0:BLOWUP * k1:BLOWUP].to(torch.int64)
+            r = cat[st * k0:st * k1:st].to(torch.int64)
             s[k0:k1] = torch.fmod(r[:, :, None] * b64[None], P).sum(dim=1)
             del r
         s = torch.fmod(torch.fmod(s, P) * RINV, P)
@@ -343,40 +465,38 @@ def _extend_coset_evals(vals):
     """(n, c) evaluations on g*<w_n> -> (4n, c) on g*<w_4n>. The coset
     shift cancels: with q(y) = f(g*y), the values are q on <w_n> and the
     target is q on <w_4n> -- a plain (unshifted) blowup-4 LDE."""
-    n, c = vals.shape
-    padded = torch.zeros((BLOWUP * n, c), dtype=torch.int32,
-                         device=vals.device)
-    padded[:n] = ntt.intt(vals)
-    return ntt.ntt(padded)
+    n = vals.shape[0]
+
+    def extend(ch):
+        padded = torch.zeros((BLOWUP * n, ch.shape[1]), dtype=torch.int32,
+                             device=ch.device)
+        padded[:n] = ntt.intt(ch)
+        return ntt.ntt(padded)
+
+    return _by_columns(extend, vals, BLOWUP * n)
 
 
 def _deep_f0(mix4, beta_nz, cz, cpre, iz, izg):
     """f0(x) = [mix_z(x) - c_z]/(x - z)
-             + beta^n_z * [mix_pre(x) - c_pre]/(x - zg)."""
+             + beta^n_z * [mix_pre(x) - c_pre]/(x - zg), row-chunked
+    as _point_inverses."""
     n4 = mix4.shape[0]
-    num_z = F.ext_sub(mix4[:, :4], cz.expand(n4, 4))
-    num_pre = F.ext_sub(mix4[:, 4:], cpre.expand(n4, 4))
-    num_zg = F.ext_mul(num_pre, beta_nz.expand(n4, 4))
-    return F.add(F.ext_mul(num_z, iz), F.ext_mul(num_zg, izg))
+    rows = F.CHUNK_ELEMS // 64
+    out = torch.empty((n4, 4), dtype=torch.int32, device=mix4.device)
+    for i in range(0, n4, rows):
+        j = min(n4, i + rows)
+        num_z = F.ext_sub(mix4[i:j, :4], cz.expand(j - i, 4))
+        num_pre = F.ext_sub(mix4[i:j, 4:], cpre.expand(j - i, 4))
+        num_zg = F.ext_mul(num_pre, beta_nz.expand(j - i, 4))
+        out[i:j] = F.add(F.ext_mul(num_z, iz[i:j]),
+                         F.ext_mul(num_zg, izg[i:j]))
+    return out
 
 
-def _deep_combine(groups_z, n_zg_groups, beta_pows_z, beta_nz,
-                  const_z, const_pre, inv_z, inv_zg):
-    mix_n = _deep_mix_s4(groups_z, beta_pows_z, n_zg_groups)
-    mix4 = _extend_coset_evals(mix_n)
-    return _deep_f0(mix4, beta_nz, const_z, const_pre, inv_z, inv_zg)
-
-
-def _open_groups(ldes_t, layers_t, qs):
-    """Queried LDE rows (standard form) + sibling digests for every group."""
-    rows, sibs = [], []
-    for lde, layers in zip(ldes_t, layers_t):
-        idx = torch.as_tensor(np.asarray(qs, np.int64), device=lde.device)
-        rows.append(_host_std(lde.index_select(0, idx)))
-        depth = len(layers) - 1
-        sibs.append(merkle._gather_paths(
-            layers, merkle._sibling_index_rows(qs, depth)))
-    return rows, sibs
+def _lde_query_rows(lde, qs):
+    """Standard-form rows of a resident LDE at the query indices."""
+    idx = torch.as_tensor(np.asarray(qs, np.int64), device=lde.device)
+    return _host_std(lde.index_select(0, idx))
 
 
 # -- prove ----------------------------------------------------------------------------
@@ -401,6 +521,11 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
     # keep the standard-form device tensors when the AIR can build its aux
     # group on the device (no host aux matrix, no second big upload)
     device_aux = hasattr(air, "build_aux_device")
+    # a main LDE too big to keep is coset-streamed (module comment above
+    # STREAM_MAIN_BYTES); a pre-committed main group stays resident
+    stream_main = (main_commit is None
+                   and BLOWUP * n * air.main_cols * 4 > STREAM_MAIN_BYTES)
+    main_coeffs = None
     ldes, trees, roots = {}, {}, {}
     dev_std = {}
     for gname in ("control", "main"):
@@ -420,13 +545,22 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
                 src = main_std
             with _Stage(f"  {gname} upload", device):
                 dev = _upload_std(src, device)
-            with _Stage(f"  {gname} lde", device):
-                ldes[gname] = _lde(dev, std=True)
+            if gname == "main" and stream_main:
+                with _Stage("  main coefficients", device):
+                    main_coeffs = _shifted_coeffs(dev)
+            else:
+                with _Stage(f"  {gname} lde", device):
+                    ldes[gname] = _lde(dev, std=True)
             if device_aux:
                 dev_std[gname] = dev
             del dev
             with _Stage(f"  {gname} tree", device):
-                trees[gname] = merkle.commit_rows(ldes[gname])
+                if gname == "main" and stream_main:
+                    trees["main"] = merkle.commit_digests(_interleave4(
+                        [merkle.leaf_digests(_coset_eval(main_coeffs, r, n))
+                         for r in range(BLOWUP)]))
+                else:
+                    trees[gname] = merkle.commit_rows(ldes[gname])
             roots[gname] = trees[gname].root
         t.mix(roots[gname])
 
@@ -469,7 +603,12 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
     # --- composition / check group --------------------------------------
     alpha = t.sample_ext()
     with _Stage("check group", device):
-        check_cols = _check_group(air, ldes, alpha, publics, challenges, n)
+        if stream_main:
+            check_cols = _check_group_streamed(air, main_coeffs, ldes, alpha,
+                                               publics, challenges, n)
+        else:
+            check_cols = _check_group(air, ldes, alpha, publics, challenges,
+                                      n)
         ldes["check"] = _lde(check_cols, std=False)
         del check_cols
         trees["check"] = merkle.commit_rows(ldes["check"])
@@ -480,16 +619,22 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
     z = t.sample_ext()
     w_n = H.rou_fwd(n)
     zg = H.ext_mul(H.ext(z), H.ext(w_n))
-    gnames = [g for g in ("control", "main", "aux", "check")
-              if ldes[g].shape[1] > 0]
+    # what the taps and the DEEP mix read of each group: its stride-4 LDE
+    # rows, or the streamed main group's coset-0 evaluations at stride 1
+    s4 = {g: (ldes[g], BLOWUP) for g in ldes}
+    if stream_main:
+        with _Stage("  main coset 0", device):
+            s4["main"] = (_coset_eval(main_coeffs, 0, n), 1)
+    width = {g: rows.shape[1] for g, (rows, _) in s4.items()}
+    gnames = [g for g in ("control", "main", "aux", "check") if width[g]]
     with _Stage("taps", device):
         gv_dev, inv_z, inv_zg = _taps_fused(
-            tuple(ldes[g] for g in gnames), _to_dev(z, device),
-            _to_dev(zg, device), n)
+            tuple(s4[g][0] for g in gnames), _to_dev(z, device),
+            _to_dev(zg, device), n, tuple(s4[g][1] for g in gnames))
         group_vals = {g: _host_std(v) for g, v in zip(gnames, gv_dev)}
     tap_vals = []
     for (gname, offset) in TAP_STREAMS:
-        if ldes[gname].shape[1] == 0:
+        if width[gname] == 0:
             tap_vals.append(np.zeros((0, 4), dtype=np.uint64))
             continue
         tap_vals.append(group_vals[gname][:, 4 * offset:4 * offset + 4])
@@ -512,43 +657,45 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
     # The DEEP combination orders zg-groups first in the beta-power
     # stream (weights beta^(n_z + j) for the control/main/aux prefix);
     # beta^n_z is factored out so both mixes share one set of products.
-    groups_z, bps_z = [], []
+    bps_z = []
     off = 0
     for g in ("control", "main", "aux", "check"):
-        c = ldes[g].shape[1]
-        if c:
-            groups_z.append(ldes[g])
-            bps_z.append(_to_dev(beta_pows[off:off + c], device))
-        off += c
-    n_zg_groups = sum(1 for g in ("control", "main", "aux")
-                      if ldes[g].shape[1])
+        if width[g]:
+            bps_z.append(_to_dev(beta_pows[off:off + width[g]], device))
+        off += width[g]
+    n_zg_groups = sum(1 for g in ("control", "main", "aux") if width[g])
     with _Stage("deep combine", device):
-        f0 = _deep_combine(groups_z, n_zg_groups, bps_z,
-                           _to_dev(beta_pows[n_z], device),
-                           _to_dev(const_z, device),
-                           _to_dev(const_pre, device), inv_z, inv_zg)
+        mix_n = _deep_mix_s4(tuple(s4[g][0] for g in gnames), bps_z,
+                             n_zg_groups, tuple(s4[g][1] for g in gnames))
+        del s4, bps_z, gv_dev
+        f0 = _deep_f0(_extend_coset_evals(mix_n),
+                      _to_dev(beta_pows[n_z], device),
+                      _to_dev(const_z, device), _to_dev(const_pre, device),
+                      inv_z, inv_zg)
+        del mix_n, inv_z, inv_zg
 
     # --- FRI + query openings -------------------------------------------
     with _Stage("fri", device):
         fri_proof, qs = fri.prove(f0, GENERATOR, n, t)
-    del f0, groups_z, bps_z, inv_z, inv_zg, gv_dev
+    del f0
     openings = {}
     with _Stage("openings", device):
-        rows_t, sibs_t = _open_groups(
-            tuple(ldes[g] for g in gnames),
-            tuple(trees[g].layers for g in gnames), qs)
         depth = len(trees[gnames[0]].layers) - 1
+        sib_idx = merkle._sibling_index_rows(qs, depth)
         for g in ("control", "main", "aux", "check"):
             if g not in gnames:
                 openings[g] = GroupOpening(
                     rows=np.zeros((len(qs), 0), dtype=np.uint64), paths=[])
                 continue
-            gi = gnames.index(g)
-            sib_layers = sibs_t[gi]
+            if g == "main" and stream_main:
+                rows = _coset_query_rows(main_coeffs, n, qs)
+            else:
+                rows = _lde_query_rows(ldes[g], qs)
+            sib_layers = merkle._gather_paths(trees[g].layers, sib_idx)
             paths = [np.stack([sib_layers[d][qi] for d in range(depth)])
                      if depth else np.zeros((0, 8), np.uint64)
                      for qi in range(len(qs))]
-            openings[g] = GroupOpening(rows=rows_t[gi], paths=paths)
+            openings[g] = GroupOpening(rows=rows, paths=paths)
 
     return StarkProof(air_name=air.name, po2=po2, publics=list(publics),
                       roots=roots, taps=taps, fri_proof=fri_proof,

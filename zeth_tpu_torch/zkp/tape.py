@@ -481,16 +481,19 @@ def build_levels(tp: TapeProgram) -> LevelProgram:
 _LEVEL_FNS: dict = {}
 
 
-def _leveled_fn(key, lp: LevelProgram, nb: int, device):
+def _leveled_fn(key, lp: LevelProgram, nb: int, device,
+                stride: int = STRIDE):
     """One-block evaluator with the level program's index tables on `device`.
 
     Signature: fn(srcs, start, S, W) -> (nb, 4) Montgomery int32.
     srcs: per leaf-group source, an LDE row array whose rows
-    [start, start + nb + STRIDE) are the block and its next-trace-row
+    [start, start + nb + stride) are the block and its next-trace-row
     overhang (distinct group names, first-use order). S: standard-form
     int64 scalars; W: (n_stage, 4) standard-form int64 alpha powers.
+    stride: rows per +1 trace-row leaf offset (STRIDE on the blowup-4
+    LDE; 1 when the sources hold one coset's evaluations).
     """
-    fkey = (key, nb, str(device))
+    fkey = (key, nb, str(device), stride)
     fn = _LEVEL_FNS.get(fkey)
     if fn is not None:
         return fn
@@ -517,7 +520,7 @@ def _leveled_fn(key, lp: LevelProgram, nb: int, device):
             B[0] = F.mont_one()
             row = 1
         for (off, cols, k), si in zip(leaf_groups, src_of):
-            lo = start + STRIDE * off
+            lo = start + stride * off
             sub = srcs[si][lo:lo + nb]
             B[row:row + k] = sub.index_select(1, cols).T
             row += k
@@ -544,13 +547,17 @@ def _leveled_fn(key, lp: LevelProgram, nb: int, device):
 
 
 def eval_check(tp: TapeProgram, ldes: dict, publics, challenges,
-               alpha_pows_std: np.ndarray):
+               alpha_pows_std: np.ndarray, stride: int = STRIDE):
     """Evaluate acc(x) = sum_i alpha^i * C_i(x) over the whole LDE domain.
 
     Returns an (N, 4) Montgomery int32 tensor (N = LDE rows). Rows are
     evaluated in blocks sized so that the level buffer (n_rows x nb
     int32) holds about ``BLOCK_ELEMS`` elements; the result does not
-    depend on the block size.
+    depend on the block size. stride: LDE rows per +1 trace-row leaf
+    offset -- STRIDE for blowup-4 LDEs, 1 when `ldes` holds a single
+    coset's (n, c) evaluations (the streamed main group evaluates the
+    check polynomial coset by coset; a strided view ``lde[r::4]`` of a
+    resident LDE serves as coset r without a copy).
     """
     lde0 = next(iter(ldes.values()))
     device = lde0.device
@@ -566,22 +573,22 @@ def eval_check(tp: TapeProgram, ldes: dict, publics, challenges,
     for g, off, cols in lp.leaf_groups:
         if g not in gnames:
             gnames.append(g)
-    # interior blocks slice (nb + STRIDE) rows straight from the LDEs (the
+    # interior blocks slice (nb + stride) rows straight from the LDEs (the
     # +1-trace-row leaf offset never crosses the end); only the final
-    # block wraps, through a small (nb + STRIDE, c) tail copy per group
+    # block wraps, through a small (nb + stride, c) tail copy per group
     raw = tuple(ldes[g] for g in gnames)
-    fn = _leveled_fn(id(tp), lp, nb, device)
+    fn = _leveled_fn(id(tp), lp, nb, device, stride)
     out = torch.empty((n, 4), dtype=torch.int32, device=device)
     for start in range(0, n - nb, nb):
         out[start:start + nb] = fn(raw, start, S, W)
-    tails = tuple(_wrap_tail(ldes[g], nb) for g in gnames)
+    tails = tuple(_wrap_tail(ldes[g], nb, stride) for g in gnames)
     out[n - nb:] = fn(tails, 0, S, W)
     return out
 
 
-def _wrap_tail(lde, nb: int):
-    """Last (nb) LDE rows extended by the first STRIDE (wrap block)."""
-    return torch.cat([lde[lde.shape[0] - nb:], lde[:STRIDE]], dim=0)
+def _wrap_tail(lde, nb: int, stride: int = STRIDE):
+    """Last (nb) LDE rows extended by the first `stride` (wrap block)."""
+    return torch.cat([lde[lde.shape[0] - nb:], lde[:stride]], dim=0)
 
 
 _LEVEL_PROGS: dict = {}
