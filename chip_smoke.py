@@ -19,7 +19,14 @@ receipts. Phases, each of which exits non-zero on failure:
    bit for bit, at the main path's shapes, with both times and the
    least time the card could take for the same work; the leaf kernel
    also hashes the bigint batch's claims row (one row of 2,479,200
-   limbs, one thread), timed alone;
+   limbs, one thread), timed alone. Then the exact int8 field products
+   (``zeth_tpu_torch.mxu``, ``torch._int_mm`` on the tensor cores): the
+   four-step coset LDE (``mxu.coset_lde_fs``, which no path takes)
+   against the radix-2 ``prover._lde`` that every path takes, at each
+   (rows, columns) of FS_SHAPES, and ``prover._eval_rows_at_points``
+   (the streamed main group's query rows) against recomputing each
+   queried coset, at the po2=24 streamed shape (2^24 x 84 coefficients,
+   50 queries), bit for bit, both timed, with their bound;
 4. oracle: a small spin segment proved on the card must hash to the seal
    digests in tests/fixtures/torch_port_seals.json (the CPU seals, which
    tests/test_torch_rv32im.py holds equal to the JAX package's), once on
@@ -34,10 +41,14 @@ receipts. Phases, each of which exits non-zero on failure:
 6. EVM front end: the guest ELF compiled from the checkout's C sources,
    the fixture block encoded, the guest executed with its trace;
 7. aux: ``build_aux_device`` on the card against the host ``build_aux``
-   on the EVM segment's main trace at po2=20, word for word;
+   on the EVM segment's main trace at po2=20, word for word (the host
+   oracle is computed in a process of its own from phase 3 on);
 8. EVM: ``prove_segments`` of that segment at po2=20, once untimed (launch
    counts and peak memory read around it) and once with the stage
-   timers, same seals; both proofs verified as bench.py verifies them;
+   timers, same seals; then the segment's main trace uploaded
+   bit-packed (``prover._upload_main``: the C packer, the unpack on the
+   card) and plain (``prover._upload_std``), timed, word for word equal;
+   both proofs verified as bench.py verifies them;
 9. accel: the block's keccak, bigint and sha batches (every accelerator
    call of the execution, built as ``zkvm.LocalProver`` builds them),
    each proved on the card untimed (launches, peak memory) and once with
@@ -66,7 +77,8 @@ receipts. Phases, each of which exits non-zero on failure:
    phase 4's streamed prove, each counted around its own run;
 12. cli: the port's command line as a user runs it. (a) ``cli
    validate`` of the smaller fixture block on the host's native EVM
-   engine, which must print the block hash its file is named by; (b)
+   engine (run in a process of its own from phase 3 on, as it needs no
+   card), which must print the block hash its file is named by; (b)
    ``cli prove`` of block 101 (tests/fixtures/cli: one segment, a keccak
    and a sha batch) at the default ``--segment-po2 20`` on the card, which
    returns 0 only when the receipt verifies against the image ID
@@ -79,10 +91,13 @@ receipts. Phases, each of which exits non-zero on failure:
 
 The script needs a CUDA card: without one it exits non-zero before any
 result. It imports no jax and nothing of the JAX package (``zeth_tpu``).
-It must finish within 1200 s, the kernels' build included (about 760-960 s
-on an H100 80GB HBM3 at 700 W): where that needs a cut, the depth of an
-earlier path is cut first (the staged spin prove runs at po2=18, not
-po2=20), never a check.
+It must finish within 1200 s, the kernels' build included (about
+760-1,150 s on an H100 80GB HBM3 at 700 W, the host's speed setting
+most of the spread; the two host-only jobs above run beside the card's
+phases to keep it inside): where that needs a cut, the
+depth of an earlier path is cut first (the staged spin prove runs at
+po2=18, not po2=20), never a check. Every AIR with a ``main_bit_mask``
+is uploaded bit-packed on every path.
 """
 
 from __future__ import annotations
@@ -92,6 +107,7 @@ import glob
 import hashlib
 import io
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -114,6 +130,8 @@ SPIN_PO2 = 18
 # and an FMA counts as two operations: 67e12 / 2 / 2 per second.
 PEAK_BYTES = 3.35e12
 PEAK_INT32 = 67e12 / 2 / 2
+# dense int8 tensor-core operations per second (an FMA counts as two)
+PEAK_INT8 = 1979e12
 
 # the aux group's 27 blocks of 4 columns, in the order they are laid out
 AUX_BLOCKS = ["t", "u", "acc", "t_r1", "t_r2", "t_w", "t_a7", "s0", "s1",
@@ -132,6 +150,20 @@ LEAF_SHAPES = [(1, 3, 20, 3), (7, 16, 20, 3), (1000, 37, 20, 3),
                (1 << 21, 84, 5, 1), (1 << 22, 1009, 3, 1)]
 # the bigint batch's claims row: 25,825 ops x 96 limbs
 CLAIMS_ROW = 25825 * 96
+
+# the (rows, columns) of the groups the reference prover gives its
+# four-step LDE (2^15 <= rows < 2^19, at most 256 columns) on these paths:
+# the po2=18 spin segment's control, aux and check groups, the po2=15
+# bigint batch's control, aux and check, the po2=16 paging proofs' (the
+# EVM segment's, block 101's), and the po2=18 recursion proofs' control,
+# main, aux and check groups; the port's prover takes the radix-2 there
+FS_SHAPES = [(1 << 18, 8), (1 << 18, 108), (1 << 18, 16),
+             (1 << 15, 2), (1 << 15, 4), (1 << 15, 16),
+             (1 << 16, 61), (1 << 16, 24), (1 << 16, 16),
+             (1 << 18, 70), (1 << 18, 84), (1 << 18, 40)]
+# the po2=24 streamed main group's coefficients (rows, columns) whose
+# rows at the proof's query points _eval_rows_at_points evaluates
+EVAL_SHAPE = (1 << 24, 84)
 
 KERNELS = {
     "poseidon2_leaf": {
@@ -260,6 +292,134 @@ def check_leaf_kernel(dev, card, P) -> dict:
             "shapes": shapes}
 
 
+def fs_bound_ms(n: int, cols: int) -> tuple:
+    """(least ms the card could take for a four-step coset LDE, what
+    bounds it). Operations: five size-n transforms (one inverse, four
+    forward), each two small-matrix stages of 16 int8 digit products,
+    32 * (n1 + n2) * n * cols int8 operations a transform. Bytes: the
+    (n, cols) input read once, the (4n, cols) result written once."""
+    from zeth_tpu_torch import mxu
+    n1, n2 = mxu._split_n(n)
+    ops_ms = 5 * 32 * (n1 + n2) * n * cols / PEAK_INT8 * 1e3
+    bytes_ms = 5 * n * cols * 4 / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), \
+        "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def check_four_step(dev, card, P, gen, shapes) -> list:
+    """The four-step coset LDE (``mxu.coset_lde_fs``) against the radix-2
+    ``prover._lde`` on the same Montgomery input at each (rows, columns)
+    of `shapes`, bit for bit; both timed (CUDA events, means of 2 after
+    a warm call). Returns one dict per shape."""
+    from zeth_tpu_torch import mxu
+    from zeth_tpu_torch.zkp import prover
+    out = []
+    for n, cols in shapes:
+        x = torch.randint(0, P, (n, cols), dtype=torch.int32, device=dev,
+                          generator=gen)
+        mxu.coset_lde_fs(x)
+        prover._lde(x, std=False)
+        got, ms = cuda_ms(lambda: mxu.coset_lde_fs(x), 2)
+        want, r2_ms = cuda_ms(lambda: prover._lde(x, std=False), 2)
+        if not torch.equal(got, want):
+            err = int((got.long() - want.long()).abs().max())
+            raise SystemExit(f"four-step LDE disagrees with the radix-2 at "
+                             f"{(n, cols)}: max_abs_err {err}")
+        bound, by = fs_bound_ms(n, cols)
+        out.append({"rows": n, "cols": cols, "ms": ms, "radix2_ms": r2_ms,
+                    "bound_ms": bound, "bound_by": by})
+        log(f"{card} | [mxu] four-step LDE ({n}, {cols}): equal to the "
+            f"radix-2, four-step {ms:.3f} ms, radix-2 {r2_ms:.3f} ms, "
+            f"bound {bound:.3f} ms by {by} ({bound / ms:.1%} of it)")
+        del x, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def coset_query_rows(coeffs1, n: int, qs):
+    """The plain counterpart of ``prover._eval_rows_at_points``: each
+    coset of the LDE that holds a query recomputed by the radix-2 NTT
+    (``prover._coset_eval``) and its rows gathered. (Q, c) Montgomery."""
+    from zeth_tpu_torch.zkp import prover
+    qa = torch.as_tensor(np.asarray(qs, np.int64), device=coeffs1.device)
+    rows = torch.empty((len(qs), coeffs1.shape[1]), dtype=torch.int32,
+                       device=coeffs1.device)
+    for r in range(prover.BLOWUP):
+        sel = torch.nonzero(qa % prover.BLOWUP == r).flatten()
+        if sel.numel():
+            ev = prover._coset_eval(coeffs1, r, n)
+            rows[sel] = ev.index_select(0, qa[sel] // prover.BLOWUP)
+            del ev
+    return rows
+
+
+def check_eval_rows(dev, card, P, gen) -> dict:
+    """``prover._eval_rows_at_points`` against ``coset_query_rows`` at
+    EVAL_SHAPE and the proof's query count, bit for bit, each timed once
+    after a warm call (the recompute's warm call is one column)."""
+    from zeth_tpu_torch import hostmath as H
+    from zeth_tpu_torch.zkp import fri, prover
+    n, c = EVAL_SHAPE
+    q = fri.QUERIES
+    coeffs = torch.randint(0, P, (n, c), dtype=torch.int32, device=dev,
+                           generator=gen)
+    qs = np.random.default_rng(24).integers(0, 4 * n, q).tolist()
+    w4n = H.rou_fwd(4 * n)
+    pts = prover._to_dev(np.array([pow(w4n, i, P) for i in qs], np.uint64),
+                         dev)
+    prover._eval_rows_at_points(coeffs, pts, n)
+    for r in range(prover.BLOWUP):        # the coset tables, built once
+        prover._coset_eval(coeffs[:, :1], r, n)
+    got, ms = cuda_ms(lambda: prover._eval_rows_at_points(coeffs, pts, n), 1)
+    want, rc_ms = cuda_ms(lambda: coset_query_rows(coeffs, n, qs), 1)
+    if not torch.equal(got, want):
+        err = int((got.long() - want.long()).abs().max())
+        raise SystemExit(f"_eval_rows_at_points disagrees with the coset "
+                         f"recompute: max_abs_err {err}")
+    ops_ms = 32 * q * n * c / PEAK_INT8 * 1e3
+    bytes_ms = (n * c + q * c) * 4 / PEAK_BYTES * 1e3
+    bound, by = max(ops_ms, bytes_ms), \
+        "operations" if ops_ms >= bytes_ms else "bytes"
+    log(f"{card} | [mxu] _eval_rows_at_points ({q} queries of ({n}, {c}) "
+        f"coefficients): equal to the coset recompute, {ms:.3f} ms against "
+        f"{rc_ms:.3f} ms, bound {bound:.3f} ms by {by} "
+        f"({bound / ms:.1%} of it)")
+    del coeffs, got, want
+    torch.cuda.empty_cache()
+    return {"queries": q, "rows": n, "cols": c, "ms": ms,
+            "recompute_ms": rc_ms, "bound_ms": bound, "bound_by": by}
+
+
+def check_upload(dev, card, air, main) -> None:
+    """The EVM main trace uploaded bit-packed (``prover._upload_main``)
+    and plain (``prover._upload_std``), each timed to a synchronise
+    (the packed one with its host buffers already made), word for word
+    equal."""
+    from zeth_tpu_torch.zkp import prover
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = prover._upload_main(air, main, dev)
+    torch.cuda.synchronize()
+    packed_s = time.time() - t0
+    t0 = time.time()
+    want = prover._upload_std(main, dev)
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    if not torch.equal(got, want):
+        bad = int((got != want).any(dim=0).nonzero()[0])
+        raise SystemExit(f"the packed upload differs from the plain one "
+                         f"first in main column {bad}")
+    spec, mask, n_bits, n_vals = prover._pack_spec(air.name)
+    n = main.shape[0]
+    log(f"{card} | [evm] main upload ({n}, {main.shape[1]}): bit-packed "
+        f"{packed_s:.3f} s ({(n_bits + 31) // 32} words + {n_vals} values "
+        f"a row, {n * ((n_bits + 31) // 32 + n_vals) * 4 / 2**30:.2f} GiB), "
+        f"plain {plain_s:.3f} s ({n * main.shape[1] * 4 / 2**30:.2f} GiB); "
+        f"equal word for word")
+    del got, want
+    torch.cuda.empty_cache()
+
+
 def spin_segment(spin_iters: int, segment_po2: int):
     """(segment, image addrs, image words, entry pc, ReceiptClaim) of a
     spin guest that halts in one segment."""
@@ -341,21 +501,50 @@ def evm_segment():
     return res.segments[0], ia, iw, res, ex
 
 
-def check_aux(dev, card, seg, ia, iw) -> None:
-    """build_aux_device on the card against the host build_aux, on the
-    segment's main trace under seeded challenges, word for word."""
+def aux_challenges(air) -> np.ndarray:
+    """The seeded challenges phase 7 builds the aux group under."""
+    from zeth_tpu_torch.hostmath import P
+    return np.random.default_rng(3).integers(
+        1, P, size=(air.n_challenges, 4)).astype(np.uint64)
+
+
+def host_aux_oracle(tmp: str) -> tuple:
+    """Phase 7's oracle, run in a process of its own while phases 3-6
+    run: EVM segment 0's aux group by the host ``build_aux`` under
+    ``aux_challenges``, saved under `tmp` (so the ~0.9 GB result does not
+    pass through the pool's pipe, whose reader shares the main process's
+    interpreter). Returns (the .npy file of the (n, 108) standard-form
+    aux, seconds of build_aux). Its front end prints nothing: phase 6
+    prints it."""
+    from zeth_tpu_torch.circuits import rv32im
+    os.nice(10)
+    with contextlib.redirect_stdout(io.StringIO()):
+        seg, ia, iw, _, _ = evm_segment()
+    air = rv32im.Rv32imAir(ia, iw)
+    main, _ = air.witgen(seg, rv32im.choose_po2(seg, len(ia)))
+    t0 = time.time()
+    want = np.asarray(air.build_aux(main, aux_challenges(air)), np.uint64)
+    host_s = time.time() - t0
+    path = os.path.join(tmp, "aux_oracle.npy")
+    np.save(path, want)
+    return path, host_s
+
+
+def check_aux(dev, card, seg, ia, iw, oracle) -> np.ndarray:
+    """build_aux_device on the card against the host build_aux
+    (``oracle``: the pending result of ``host_aux_oracle``), on the
+    segment's main trace under seeded challenges, word for word. Returns
+    that main trace (host, standard form)."""
     from zeth_tpu_torch import field as F
     from zeth_tpu_torch.circuits import rv32im
-    from zeth_tpu_torch.hostmath import P
     from zeth_tpu_torch.zkp import prover
     air = rv32im.Rv32imAir(ia, iw)
     po2 = rv32im.choose_po2(seg, len(ia))
     main, _ = air.witgen(seg, po2)
-    chal = np.random.default_rng(3).integers(
-        1, P, size=(air.n_challenges, 4)).astype(np.uint64)
-    t0 = time.time()
-    want = np.asarray(air.build_aux(main, chal), np.uint64)
-    host_s = time.time() - t0
+    chal = aux_challenges(air)
+    path, host_s = oracle.get()
+    want = np.load(path)
+    os.remove(path)
     main_dev = prover._upload_std(main, dev)
     ctrl_dev = prover._upload_std(air.control_trace(po2), dev)
     air.build_aux_device(main_dev, ctrl_dev, chal)             # warm up
@@ -394,9 +583,10 @@ def check_aux(dev, card, seg, ia, iw) -> None:
         f"build_aux on all {want.shape[1]} columns x {want.shape[0]} rows "
         f"({len(filled)} of {len(AUX_BLOCKS)} blocks non-zero); device "
         f"{dev_s:.3f} s (+{extra / 2**30:.2f} GiB over the resident main "
-        f"and control), host {host_s:.3f} s")
+        f"and control), host {host_s:.3f} s (in a process of its own)")
     del main_dev, ctrl_dev, got_m
     torch.cuda.empty_cache()
+    return main
 
 
 def require_launches(launches: dict, path: str) -> None:
@@ -407,18 +597,27 @@ def require_launches(launches: dict, path: str) -> None:
 
 
 def staged_prove(card, tag, prove):
-    """One prove with the prover's stage timers on; prints the table."""
+    """One prove with the prover's stage timers on; prints the table and
+    the first stage whose end saw the prove's peak device memory."""
     from zeth_tpu_torch.zkp import prover
     prover.TIMING = True
     prover.STAGE_LOG.clear()
+    prover.STAGE_PEAKS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     out = prove()
     torch.cuda.synchronize()
     total = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
     prover.TIMING = False
     for name, dt in prover.STAGE_LOG:
         log(f"{card} | [{tag}] {name.strip()}: {dt:.3f} s")
-    log(f"{card} | [{tag}] prove with stage timers: {total:.3f} s")
+    setter = next((name.strip() for name, b in prover.STAGE_PEAKS
+                   if b == peak), "none")
+    log(f"{card} | [{tag}] prove with stage timers: {total:.3f} s, peak "
+        f"device memory {peak / 2**30:.2f} GiB, reached by the end of "
+        f"'{setter}'")
     return out
 
 
@@ -477,7 +676,7 @@ def fixture_batches(fx) -> dict:
 def accel_phase(dev, card, ex, seg0_seal, fx) -> tuple:
     """The block's accelerator batches proved and verified on the card,
     and linked to segment 0's bound IO. Returns the leaf launches of the
-    three untimed proves, and the batches' seals by kind."""
+    three proves, and the batches' seals by kind."""
     from zeth_tpu_torch import kernels, zkvm
     from zeth_tpu_torch.circuits import rv32im
     from zeth_tpu_torch.zkp import proof as proof_mod
@@ -486,26 +685,22 @@ def accel_phase(dev, card, ex, seg0_seal, fx) -> tuple:
     if sorted(batches) != ["bigint", "keccak", "sha"]:
         raise SystemExit(f"the block made calls of {sorted(batches)} only")
     prover.TIMING = False
-    kernels.reset_counts()
     out = {}
+    launches = {name: 0 for name in kernels.NAMES}
     for kind, args in batches.items():
         mod = zkvm.accelerator_module(kind)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.time()
-        seal, digest = mod.prove_batch(*args, device=dev)
-        torch.cuda.synchronize()
-        prove_s = time.time() - t0
-        peak = torch.cuda.max_memory_allocated(dev)
+        with path_counters(dev) as got:
+            seal, digest = mod.prove_batch(*args, device=dev)
+        for name in launches:
+            launches[name] += got["counts"][name]
         pf = proof_mod.decode(seal)
         out[kind] = (seal, digest)
         log(f"{card} | [accel] {kind}: {len(args[0])} calls, po2={pf.po2}, "
             f"{pf.openings['main'].rows.shape[1]} main / "
             f"{pf.openings['control'].rows.shape[1]} control columns, "
-            f"{len(pf.publics)} publics, prove_batch {prove_s:.3f} s, peak "
-            f"device memory {peak / 2**30:.2f} GiB, seal {seal.shape[0]} "
+            f"{len(pf.publics)} publics, prove_batch {got['s']:.3f} s, peak "
+            f"device memory {got['peak_gib']:.2f} GiB, seal {seal.shape[0]} "
             f"words ({seal.shape[0] * 4 / 2**20:.2f} MiB)")
-    launches = dict(kernels.LAUNCHES)
     require_launches(launches, "accel")
     log(f"{card} | [accel] launches of the three proves {launches}")
     for kind, args in batches.items():
@@ -951,20 +1146,18 @@ def run_cli(argv: list) -> tuple:
     return rc, buf.getvalue()
 
 
-def cli_phase(dev, card, tmp: str) -> dict:
-    """12: ``cli validate`` of the smaller fixture block, then ``cli
-    prove`` of block 101 on the card, with two tampers. Returns the leaf
-    launches of the prove run."""
-    from zeth_tpu_torch import kernels, zkvm
+def cli_validate(tmp: str) -> tuple:
+    """Phase 12's ``cli validate`` of the smaller fixture block, host
+    only, at the block's full size, run in a process of its own while
+    phases 3-11 run: (block file, block number, seconds to build and load
+    the native engine, exit code, standard output, seconds)."""
     from zeth_tpu_torch.app import evm
-    from zeth_tpu_torch.app.host import BlockProcessor, StatelessInput
-    from zeth_tpu_torch.zkp import prover
+    from zeth_tpu_torch.app.host import StatelessInput
+    os.nice(10)
     # the native engine, built from the checkout by make, outside the timer
     t0 = time.time()
     evm.get_lib()
-    log(f"[cli] native EVM engine (zeth_tpu_torch/app/csrc/evm.cpp) built "
-        f"and loaded in {time.time() - t0:.1f} s")
-    # (a) validate, host only, at the block's full size
+    build_s = time.time() - t0
     path = sorted(glob.glob(os.path.join(ROOT, "tests", "fixtures",
                                          "input_0x*.json")),
                   key=os.path.getsize)[0]
@@ -973,17 +1166,36 @@ def cli_phase(dev, card, tmp: str) -> dict:
     vdir = os.path.join(tmp, "validate")
     os.makedirs(vdir)
     shutil.copy(path, vdir)
+    from zeth_tpu_torch.app import cli
+    buf = io.StringIO()
     t0 = time.time()
-    rc, out = run_cli(["--cache-dir", vdir, "--block", str(number),
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--cache-dir", vdir, "--block", str(number),
                        "validate"])
-    validate_s = time.time() - t0
+    return path, number, build_s, rc, buf.getvalue(), time.time() - t0
+
+
+def cli_phase(dev, card, tmp: str, validated) -> dict:
+    """12: ``cli validate`` of the smaller fixture block (`validated`: the
+    pending result of ``cli_validate``), then ``cli prove`` of block 101
+    on the card, with two tampers. Returns the leaf launches of the prove
+    run."""
+    from zeth_tpu_torch import kernels, zkvm
+    from zeth_tpu_torch.app.host import BlockProcessor
+    from zeth_tpu_torch.zkp import prover
+    # (a) validate
+    path, number, build_s, rc, out, validate_s = validated.get()
+    log(f"[cli] native EVM engine (zeth_tpu_torch/app/csrc/evm.cpp) built "
+        f"and loaded in {build_s:.1f} s")
+    for line in out.splitlines():
+        log(f"[cli] > {line}")
     want = os.path.basename(path)[len("input_"):-len(".json")]
     if rc != 0 or f"hash {want}" not in out:
         raise SystemExit(f"cli validate of block {number} returned {rc}, "
                          f"expected 0 and the hash {want[:18]}...")
     log(f"{card} | [cli] validate block {number} ({want[:18]}...): exit 0, "
         f"hash equals the file's name, {validate_s:.3f} s on the host's "
-        f"native EVM engine")
+        f"native EVM engine (in a process of its own)")
     # (b) prove on the card, as a user runs it
     if os.environ.get("ZETH_DEV_MODE") is not None:
         raise SystemExit("ZETH_DEV_MODE is set: cli prove would not prove")
@@ -1043,11 +1255,7 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device; this script runs the "
                          "port on a GPU only")
     dev = torch.device("cuda", 0)
-    from zeth_tpu_torch import kernels, zkvm
-    from zeth_tpu_torch.circuits import rv32im
-    from zeth_tpu_torch.hostmath import P
-    from zeth_tpu_torch.zkp import proof as proof_mod
-    from zeth_tpu_torch.zkp import prover
+    from zeth_tpu_torch import kernels
     t_start = time.time()
 
     # 1. device
@@ -1062,8 +1270,37 @@ def main() -> None:
         log(f"[build] {name}: {out.strip()}")
     log(f"[build] {len(logs)} kernel(s) in {time.time() - t0:.1f} s")
 
-    # 3. kernels against their plain versions
+    # two host-only jobs, phase 7's aux oracle and phase 12's validate,
+    # run in processes of their own from here on; leaving the block
+    # stops them
+    with tempfile.TemporaryDirectory() as tmp, \
+            multiprocessing.get_context("spawn").Pool(2) as pool:
+        run_phases(dev, card, t_start, tmp,
+                   pool.apply_async(host_aux_oracle, (tmp,)),
+                   pool.apply_async(cli_validate, (tmp,)))
+
+
+def run_phases(dev, card, t_start: float, tmp: str, oracle,
+               validated) -> None:
+    """Phases 3-13 (`oracle` and `validated`: the pending results of
+    ``host_aux_oracle`` and ``cli_validate``)."""
+    from zeth_tpu_torch import kernels, ntt, zkvm
+    from zeth_tpu_torch.circuits import rv32im
+    from zeth_tpu_torch.hostmath import P
+    from zeth_tpu_torch.zkp import proof as proof_mod
+    from zeth_tpu_torch.zkp import prover
+
+    # 3. kernels against their plain versions, then the int8 field
+    # products against the radix-2 and the coset recompute
     results = {"poseidon2_leaf": check_leaf_kernel(dev, card, P)}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    check_four_step(dev, card, P, gen, FS_SHAPES)
+    check_eval_rows(dev, card, P, gen)
+    # the device tables those checks cached (the 2^24-row coset power
+    # tables alone hold ~0.8 GiB) would count in every later peak
+    ntt._TABLES.clear()
+    torch.cuda.empty_cache()
 
     # 4. the small-po2 oracle
     with open(FIXTURE) as f:
@@ -1094,11 +1331,13 @@ def main() -> None:
         ((1 << SPIN_PO2) - 4096) * 3 // 2, SPIN_PO2)
     cycles = int(seg.trace.shape[0])
     prover.TIMING = False
+    torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_counts()
     t0 = time.time()
     seal, pg_seal = rv32im.prove_segment(seg, ia, iw, device=dev)
     torch.cuda.synchronize()
     prove_s = time.time() - t0
+    spin_peak = torch.cuda.max_memory_allocated(dev)
     spin_launches = dict(kernels.LAUNCHES)
     require_launches(spin_launches, "spin")
     t0 = time.time()
@@ -1108,7 +1347,8 @@ def main() -> None:
     log(f"{card} | [spin] po2={SPIN_PO2}: {cycles} cycles, prove_segment "
         f"{prove_s:.3f} s ({cycles / prove_s / 1e6:.4f} Mcycles/s), "
         f"verify_segments {verify_s:.3f} s (both STARKs and the chain "
-        f"checks), launches {spin_launches}")
+        f"checks), peak device memory {spin_peak / 2**30:.2f} GiB, "
+        f"launches {spin_launches}")
     # the stage breakdown, at SPIN_PO2 rather than PO2 to keep the script
     # inside its time limit
     staged = staged_prove(card, "spin-stage",
@@ -1125,17 +1365,14 @@ def main() -> None:
     del res
 
     # 7. the aux group on the card against the host oracle
-    check_aux(dev, card, seg, ia, iw)
+    main_trace = check_aux(dev, card, seg, ia, iw, oracle)
 
-    # 8. the EVM path, full width and depth: untimed, then staged
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_counts()
-    t0 = time.time()
-    seals, pg_seals = rv32im.prove_segments([seg], ia, iw, device=dev)
-    torch.cuda.synchronize()
-    prove_s = time.time() - t0
-    launches = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated(dev)
+    # 8. the EVM path, full width and depth: untimed (the launch counts
+    # and peak memory read around it), then staged, same seals
+    prover.TIMING = False
+    with path_counters(dev) as got:
+        seals, pg_seals = rv32im.prove_segments([seg], ia, iw, device=dev)
+    prove_s, peak, launches = got["s"], got["peak_gib"], got["counts"]
     require_launches(launches, "EVM")
     staged = staged_prove(
         card, "evm-stage",
@@ -1144,6 +1381,8 @@ def main() -> None:
         raise SystemExit("the stage-timed prove gave other seals")
     del staged, seg
     torch.cuda.empty_cache()
+    check_upload(dev, card, rv32im.Rv32imAir(ia, iw), main_trace)
+    del main_trace
     pg_s, rv_s = verify_pair(dev, seals[0], pg_seals[0], ia, iw)
     words = seals[0].shape[0] + pg_seals[0].shape[0]
     log(f"{card} | [evm] po2={PO2}: segment 0, {cycles} cycles, "
@@ -1151,7 +1390,7 @@ def main() -> None:
         f"({cycles / prove_s / 1e6:.4f} Mcycles/s), verify {pg_s:.3f} s "
         f"paging + {rv_s:.3f} s rv32im, seal {seals[0].shape[0]} + paging "
         f"{pg_seals[0].shape[0]} words ({words * 4 / 1024:.1f} KiB), "
-        f"peak device memory {peak / 2**30:.2f} GiB, launches {launches}")
+        f"peak device memory {peak:.2f} GiB, launches {launches}")
 
     # 9. the block's accelerator batches, and the resolve of segment 0
     accel_launches, accel_seals = accel_phase(dev, card, ex, seals[0],
@@ -1188,8 +1427,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 12. the CLI: validate a fixture block, prove block 101 on the card
-    with tempfile.TemporaryDirectory() as tmp:
-        cli_launches = cli_phase(dev, card, tmp)
+    cli_launches = cli_phase(dev, card, tmp, validated)
 
     # 13. results
     log(f"[done] {time.time() - t_start:.1f} s")

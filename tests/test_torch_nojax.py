@@ -63,7 +63,7 @@ def test_every_port_module_imports_without_jax():
                  "recursion.compiler", "recursion.succinct",
                  "recursion.scheduler", "app.evm", "app.bn254",
                  "app.preflight", "app.rpc_proxy", "app.cli",
-                 "app.run_parallel", "zkp.groth16"):
+                 "app.run_parallel", "zkp.groth16", "mxu"):
         assert "zeth_tpu_torch." + name in names
 
 

@@ -2,8 +2,8 @@
 
 Copy of ``zeth_tpu.executor`` (the same ``rv32im.cpp``), so that the port
 imports nothing of the JAX package; tests/test_torch_executor.py holds the
-two equal. The row-packing library of the reference's bit-packed upload
-is left out with that upload.
+two equal. ``pack_rows`` (``csrc/pack.cpp``, the same file) packs the
+main trace for the prover's bit-packed upload.
 
 Replacement for risc0-circuit-rv32im's executor/emulator
 (SURVEY.md §2.2): the hot interpreter loop, paged memory, segmentation
@@ -143,6 +143,58 @@ def get_lib():
     if _LIB is None:
         _LIB = _lib()
     return _LIB
+
+
+_PACK_SO = os.path.join(_DIR, "csrc", "libpack.so")
+_PACK_LIB = None
+
+
+def _pack_lib():
+    """libpack.so, built by make from csrc/pack.cpp at first use (and again
+    when pack.cpp is newer); a failed build raises with make's output."""
+    global _PACK_LIB
+    if _PACK_LIB is None:
+        if _stale(_PACK_SO, [os.path.join(_DIR, "csrc", "pack.cpp")]):
+            proc = subprocess.run(
+                ["make", "-s", "-C", os.path.join(_DIR, "csrc"), "libpack.so"],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"building {_PACK_SO} failed (make exit "
+                    f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        lib = ctypes.CDLL(_PACK_SO)
+        lib.zeth_pack_rows.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ]
+        _PACK_LIB = lib
+    return _PACK_LIB
+
+
+def pack_rows(m: np.ndarray, bit_cols: np.ndarray, val_cols: np.ndarray,
+              packed: np.ndarray, vals: np.ndarray,
+              r0: int, r1: int) -> None:
+    """Pack witness rows [r0, r1): bit columns -> u32 bit words, value
+    columns -> u32. All arrays C-contiguous; m uint64 (n, C), packed
+    uint32 (n, n_words), vals uint32 (n, n_vals). Releases the GIL, so
+    callers thread over row ranges."""
+    assert m.dtype == np.uint64 and m.flags.c_contiguous
+    assert packed.dtype == np.uint32 and packed.flags.c_contiguous
+    assert vals.dtype == np.uint32 and vals.flags.c_contiguous
+    bit_cols = np.ascontiguousarray(bit_cols, np.int32)
+    val_cols = np.ascontiguousarray(val_cols, np.int32)
+    assert packed.shape[1] * 32 >= len(bit_cols)
+    # the C kernel uses len(val_cols) as the vals row stride
+    assert len(val_cols) == 0 or vals.shape[1] == len(val_cols)
+    _pack_lib().zeth_pack_rows(
+        m.ctypes.data, m.shape[1],
+        bit_cols.ctypes.data, len(bit_cols),
+        val_cols.ctypes.data, len(val_cols),
+        packed.ctypes.data, packed.shape[1],
+        vals.ctypes.data, int(r0), int(r1))
 
 
 @dataclass

@@ -18,13 +18,19 @@ int64 temporaries are bounded by working on column or row chunks, all
 sized from ``field.CHUNK_ELEMS`` (the Merkle pair levels too). An AIR
 with a ``build_aux_device`` gets its aux group built on the device from
 the standard-form main and control tensors, which stay until that
-stage. The reference's mesh path,
-bit-packed upload and MXU kernels have no counterpart here. Seals equal
-the reference's word for word.
+stage. An AIR with a ``main_bit_mask`` ships its main trace bit-packed
+(``_upload_main``: the C packer on the host, the unpack on the device).
+Every group takes the radix-2 ``_lde``: the reference's four-step LDE
+(``mxu.coset_lde_fs``) gives the same words and is slower on the card
+at every shape the reference hands it. The streamed main group's query
+rows are one exact field product (``_eval_rows_at_points``). The
+reference's mesh path has no counterpart here. Seals equal the
+reference's word for word.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import sys
 import time
@@ -35,7 +41,7 @@ import torch
 
 from .. import field as F
 from .. import hostmath as H
-from .. import ntt
+from .. import mxu, ntt, staging
 from ..convert import resolve_device
 from ..hash import merkle
 from ..hostmath import GENERATOR, P, RINV
@@ -214,6 +220,123 @@ def _lde(dev, std: bool):
         dev, BLOWUP * dev.shape[0])
 
 
+# -- bit-packed main upload -------------------------------------------------------
+#
+# Most main columns of the rv32im, paging and accelerator AIRs are bits
+# (971 of the rv32im's 1,009). The host packs the bit columns into 32-bit
+# words and the value columns into a narrow matrix (the C packer,
+# executor/csrc/pack.cpp, threaded over row ranges), and the device
+# unpacks them into the standard-form matrix that ``_upload_std`` gives.
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_spec(air_name: str):
+    """(spec, mask, n_bits, n_vals) of a registered AIR's main_bit_mask:
+    spec = (word_idx, bit_off, col_src, val_idx) per main column (col_src
+    0 = bit, 1 = value), as tuples."""
+    air = _AIRS[air_name]
+    mask = np.asarray(air.main_bit_mask, bool)
+    n_cols = mask.shape[0]
+    word_idx = np.zeros(n_cols, dtype=np.int32)
+    bit_off = np.zeros(n_cols, dtype=np.int32)
+    col_src = np.ones(n_cols, dtype=np.int32)    # 0 = bit, 1 = value
+    val_idx = np.zeros(n_cols, dtype=np.int32)
+    b = v = 0
+    for c in range(n_cols):
+        if mask[c]:
+            word_idx[c] = b // 32
+            bit_off[c] = b % 32
+            col_src[c] = 0
+            b += 1
+        else:
+            val_idx[c] = v
+            v += 1
+    return (tuple(word_idx.tolist()), tuple(bit_off.tolist()),
+            tuple(col_src.tolist()), tuple(val_idx.tolist())), mask, b, v
+
+
+def _unpack_main(packed, vals, spec):
+    """(n, words) packed bits + (n, n_vals) values, int32 -> (n,
+    main_cols) standard-form int32: column c is bit bit_off[c] of word
+    word_idx[c] where col_src[c] is 0, else value column val_idx[c]. Row
+    chunks bound the gathers to about ``field.CHUNK_ELEMS`` elements."""
+    word_idx, bit_off, is_bit, val_idx = ntt._device_table(
+        ("unpack", spec), packed.device, lambda: (
+            torch.tensor(spec[0], dtype=torch.int64),
+            torch.tensor(spec[1], dtype=torch.int32),
+            torch.tensor([s == 0 for s in spec[2]]),
+            torch.tensor(spec[3], dtype=torch.int64)))
+    n, c = packed.shape[0], word_idx.shape[0]
+    out = torch.empty((n, c), dtype=torch.int32, device=packed.device)
+    rows = max(1, F.CHUNK_ELEMS // max(c, 1))
+    for r0 in range(0, n, rows):
+        # words are uint32 bit patterns in int32: >> sign-extends bit 31,
+        # so the bit is masked after the shift
+        bits = (packed[r0:r0 + rows].index_select(1, word_idx) >> bit_off) & 1
+        torch.where(is_bit, bits,
+                    vals[r0:r0 + rows].index_select(1, val_idx),
+                    out=out[r0:r0 + rows])
+        del bits
+    return out
+
+
+# Reusable host staging buffers, keyed by shape: a fresh multi-GB host
+# allocation faults in page by page, reuse keeps the pages resident. For
+# a CUDA device they are pinned, so the copies run asynchronously; the
+# event of a buffer's last copy is awaited before it is written again.
+_STAGE_BUFS: dict = {}
+
+
+def _staged(key: str, shape: tuple, device) -> list:
+    """[int32 host tensor of `shape`, event of its last copy or None]."""
+    pin = device.type == "cuda"
+    k = (key, tuple(shape), pin)
+    ent = _STAGE_BUFS.get(k)
+    if ent is None:
+        ent = _STAGE_BUFS[k] = [torch.empty(shape, dtype=torch.int32,
+                                            pin_memory=pin), None]
+    elif ent[1] is not None:
+        ent[1].synchronize()
+    return ent
+
+
+def _upload_main(air: Air, main_std: np.ndarray, device) -> torch.Tensor:
+    """The (n, main_cols) standard-form main trace on `device`, equal to
+    ``_upload_std(main_std, device)``. An AIR with a ``main_bit_mask``
+    ships it bit-packed (packed on the host by ``executor.pack_rows``,
+    unpacked on the device); any other is shipped raw."""
+    if getattr(air, "main_bit_mask", None) is None:
+        return _upload_std(main_std, device)
+    from ..executor import pack_rows
+    register_air(air)
+    spec, mask, n_bits, n_vals = _pack_spec(air.name)
+    n = main_std.shape[0]
+    bit_idx = np.nonzero(mask)[0]
+    val_idx = np.nonzero(~mask)[0]
+    bufs = (_staged("packed", (n, (n_bits + 31) // 32), device),
+            _staged("vals32", (n, max(n_vals, 1)), device))
+    with _Stage("    pack host", device):
+        packed, vals = (b[0].numpy().view(np.uint32) for b in bufs)
+        m64 = np.ascontiguousarray(main_std, np.uint64)
+        n_chunks = min(staging._N_THREADS, max(1, n // 8192))
+        step = -(-n // n_chunks)
+        futs = [staging._pool().submit(pack_rows, m64, bit_idx, val_idx,
+                                       packed, vals, r0, min(r0 + step, n))
+                for r0 in range(0, n, step)]
+        for f in futs:
+            f.result()
+    with _Stage("    put packed", device):
+        dm = bufs[0][0].to(device, non_blocking=True)
+    with _Stage("    put vals", device):
+        dv = bufs[1][0].to(device, non_blocking=True)
+    if device.type == "cuda":
+        for b in bufs:
+            b[1] = torch.cuda.Event()
+            b[1].record(torch.cuda.current_stream(device))
+    with _Stage("    unpack", device):
+        return _unpack_main(dm, dv, spec)
+
+
 def commit_main(air: Air, main_std: np.ndarray, device=None):
     """Commit the main group exactly as prove() does, on `device` (None:
     the CUDA card); returns (root (8,) np.uint64, handle) where handle =
@@ -221,7 +344,7 @@ def commit_main(air: Air, main_std: np.ndarray, device=None):
     prove(main_commit=handle) to reuse them (used to pre-commit a
     companion proof's trace into another transcript via
     prove(extra_mix=...) before the shared challenges are sampled)."""
-    dev = _upload_std(main_std, resolve_device(device))
+    dev = _upload_main(air, main_std, resolve_device(device))
     lde = _lde(dev, std=True)
     tree = merkle.commit_rows(lde)
     return tree.root, (dev, lde, tree)
@@ -275,21 +398,30 @@ def _coset_rows(lde, r: int):
     return lde[r::BLOWUP]
 
 
-def _coset_query_rows(coeffs1, n: int, qs):
-    """Standard-form rows at LDE indices `qs` of the streamed main group:
-    each coset that holds a query is recomputed, its rows gathered and
-    freed (a field value is unique, so these are the LDE's words)."""
-    qa = np.asarray(qs, np.int64)
-    rows = np.zeros((qa.shape[0], coeffs1.shape[1]), np.uint64)
-    for r in range(BLOWUP):
-        sel = np.nonzero(qa % BLOWUP == r)[0]
-        if sel.size == 0:
-            continue
-        ev = _coset_eval(coeffs1, r, n)
-        idx = torch.as_tensor(qa[sel] // BLOWUP, device=coeffs1.device)
-        rows[sel] = _host_std(ev.index_select(0, idx))
-        del ev
-    return rows
+def _eval_rows_at_points(coeffs1, pts_m, n: int):
+    """Rows of the columns whose shifted coefficients are `coeffs1`
+    ((n, c) Montgomery) at the points pts_m ((Q,) Montgomery, the LDE
+    points w_4n^q), straight from the coefficients: row q = sum_j
+    coeffs1[j, :] * x_q^j, an exact field product (``mxu.modmm``) of the
+    points' standard-form power rows against the coefficients. Returns
+    (Q, c) Montgomery. The power rows are made on the device in blocks of
+    whole ``mxu._MAX_K`` chunks, so the sums chunk as one modmm call over
+    all n would, with a bounded (Q, block) operand."""
+    dev = coeffs1.device
+    x = F.from_monty(pts_m).to(torch.int64)[:, None]          # (Q, 1)
+    blk = min(n, 16 * mxu._MAX_K)
+    pw = torch.ones((x.shape[0], 1), dtype=torch.int64, device=dev)
+    while pw.shape[1] < blk:                  # x^0 .. x^(blk-1), doubling
+        pw = torch.cat([pw, pw * (pw[:, -1:] * x % P) % P], dim=1)
+    x_blk = pw[:, -1:] * x % P                                # x^blk
+    scale = torch.ones_like(x)
+    out = None
+    for off in range(0, n, blk):
+        r = mxu.modmm((pw * scale % P).to(torch.int32),
+                      coeffs1[off:off + blk])
+        out = r if out is None else F.add(out, r)
+        scale = scale * x_blk % P
+    return out
 
 
 # -- check group -------------------------------------------------------------------
@@ -544,7 +676,8 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
             else:
                 src = main_std
             with _Stage(f"  {gname} upload", device):
-                dev = _upload_std(src, device)
+                dev = _upload_std(src, device) if gname == "control" \
+                    else _upload_main(air, src, device)
             if gname == "main" and stream_main:
                 with _Stage("  main coefficients", device):
                     main_coeffs = _shifted_coeffs(dev)
@@ -688,7 +821,12 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
                     rows=np.zeros((len(qs), 0), dtype=np.uint64), paths=[])
                 continue
             if g == "main" and stream_main:
-                rows = _coset_query_rows(main_coeffs, n, qs)
+                # no LDE of the main group exists: its rows evaluate
+                # straight from the coefficients
+                w4n = H.rou_fwd(BLOWUP * n)
+                pts = np.array([pow(w4n, int(q), P) for q in qs], np.uint64)
+                rows = _host_std(_eval_rows_at_points(
+                    main_coeffs, _to_dev(pts, device), n))
             else:
                 rows = _lde_query_rows(ldes[g], qs)
             sib_layers = merkle._gather_paths(trees[g].layers, sib_idx)
