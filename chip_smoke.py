@@ -66,7 +66,7 @@ receipts. Phases, each of which exits non-zero on failure:
    ``verify_root_segments``, with a flipped root-seal word and a forged
    d0 binding rejected; one line per recursion proof with its host and
    prove seconds, leaf launches and peak memory; (b) ``zkvm.LocalProver``
-   under ``ZETH_SUCCINCT=1`` on a three-segment spin guest and on a
+   under ``ZETH_SUCCINCT=1`` on a two-segment spin guest and on a
    bigint guest, each receipt verified and tampered (a forged d0 binding,
    a forged paging public, a flipped root-seal word, a flipped
    accelerator public); the launch counts are read around (a) and (b);
@@ -86,7 +86,19 @@ receipts. Phases, each of which exits non-zero on failure:
    its prove and verify seconds, segments, cycles, leaf launches and
    peak memory; then a flipped segment-seal word and a flipped
    keccak-seal word must be rejected;
-13. a ``{"kernels": [...]}`` line, the card line, and the final
+13. mesh: the multi-device path, several ranks on the one card
+   (``parallel.multihost.launch``: one process a rank, gloo, every
+   rank's shards on the card). (a) MESH_FIXTURE_RANKS ranks prove phase
+   4's fixture spin segment with ``prove_segments(mesh=...)``, whose
+   seals must hash to the fixture digests; (b) MESH_SPIN_RANKS ranks
+   prove phase 5's po2=18 spin segment, whose seals must equal phase 5's
+   word for word and verify; every rank's seals must equal every other
+   rank's. Per rank: the prove seconds, leaf launches (the ``mesh``
+   path's, summed over ranks), peak device memory, the collectives'
+   calls, bytes and seconds and their backend; for (b) also the main
+   group's sharded LDE and commit against the unsharded ``_lde`` and
+   ``commit_rows`` at the same shape, with the same root;
+14. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, ...}`` line.
 
 The script needs a CUDA card: without one it exits non-zero before any
@@ -164,6 +176,10 @@ FS_SHAPES = [(1 << 18, 8), (1 << 18, 108), (1 << 18, 16),
 # the po2=24 streamed main group's coefficients (rows, columns) whose
 # rows at the proof's query points _eval_rows_at_points evaluates
 EVAL_SHAPE = (1 << 24, 84)
+# phase 13's rank counts on the one card: (a) phase 4's fixture segment,
+# (b) phase 5's po2=18 spin segment
+MESH_FIXTURE_RANKS = 4
+MESH_SPIN_RANKS = 2
 
 KERNELS = {
     "poseidon2_leaf": {
@@ -997,7 +1013,7 @@ def streamed_sha_lift(dev, card, resident_seal, sha_seal) -> dict:
 
 def succinct_receipts(dev, card) -> None:
     """11b: ``LocalProver`` under ZETH_SUCCINCT=1 and ``Receipt.verify``
-    on a three-segment spin guest and on a bigint guest, with the tampers
+    on a two-segment spin guest and on a bigint guest, with the tampers
     of tools/succinct_e2e.py."""
     from zeth_tpu_torch import zkvm
     from zeth_tpu_torch.executor import compute_image_id, guests
@@ -1007,9 +1023,10 @@ def succinct_receipts(dev, card) -> None:
     try:
         a, b, m = 1234567, 7654321, (1 << 31) - 1
         for name, elf, po2 in (
-                # three segments of po2=14 (tools/succinct_e2e.py's
-                # (1 << 14) * 5 // 2 iterations make two)
-                ("spin", guests.spin((1 << 14) * 3), 14),
+                # two segments of po2=14, as tools/succinct_e2e.py's
+                # (cut from three, seven recursion proofs instead of
+                # eleven, to make room for phase 13)
+                ("spin", guests.spin((1 << 14) * 5 // 2), 14),
                 ("bigint_guest(reps=2)",
                  guests.bigint_guest(a, b, m, reps=2), 20)):
             env = zkvm.ExecutorEnv.builder().segment_limit_po2(po2).build()
@@ -1039,9 +1056,9 @@ def succinct_receipts(dev, card) -> None:
                 keep()
 
             if name == "spin":
-                if n_seg < 3:
+                if n_seg < 2:
                     raise SystemExit(f"spin gave {n_seg} segments, "
-                                     "expected at least 3")
+                                     "expected at least 2")
 
                 def d0():
                     x = inner.segment_extras[0]
@@ -1064,8 +1081,8 @@ def succinct_receipts(dev, card) -> None:
                     return lambda: setattr(inner, "root_seal", keep)
 
                 reject("a forged d0 binding", d0)
-                reject("a forged paging public (limb 32) of the middle "
-                       "segment", paging)
+                reject(f"a forged paging public (limb 32) of segment "
+                       f"{n_seg // 2}", paging)
                 reject("a flipped root-seal word", root_word)
             else:
                 if receipt.journal != (a * b % m * b % m).to_bytes(
@@ -1250,6 +1267,155 @@ def cli_phase(dev, card, tmp: str, validated) -> dict:
     return launches
 
 
+def mesh_rank(mesh, spin_iters: int, segment_po2: int,
+              compare_lde: bool) -> dict:
+    """One rank of phase 13, in a process of its own: the spin segment of
+    `spin_iters` executed, then proved by ``prove_segments(mesh=...)``
+    with this rank's shards on its card; its seals, seconds, leaf
+    launches (counted from 0 around the prove), peak device memory, the
+    collectives' calls, bytes and seconds, and their transport. With
+    `compare_lde`, then the main group's sharded LDE and commit timed
+    alone (``prover._lde(mesh=...)``, ``merkle.commit_rows_sharded``)."""
+    import torch.distributed as dist
+    from zeth_tpu_torch import kernels
+    from zeth_tpu_torch.circuits import rv32im
+    from zeth_tpu_torch.convert import resolve_device
+    from zeth_tpu_torch.hash import merkle
+    from zeth_tpu_torch.parallel import comm
+    from zeth_tpu_torch.zkp import prover
+    dev = resolve_device(None, mesh)
+    seg, ia, iw, _, _ = spin_segment(spin_iters, segment_po2)
+    kernels.load("poseidon2_leaf")
+    comm.reset_stats()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier()
+    kernels.reset_counts()
+    t0 = time.time()
+    seals, pg_seals = rv32im.prove_segments([seg], ia, iw, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    out = {"rank": comm.rank(mesh), "device": str(dev),
+           "s": time.time() - t0, "seals": (seals[0], pg_seals[0]),
+           "counts": dict(kernels.LAUNCHES),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "comm": dict(comm.STATS),
+           "transport": comm.transport(mesh, dev)}
+    if compare_lde:
+        air = rv32im.Rv32imAir(ia, iw)
+        main, _ = air.witgen(seg, rv32im.choose_po2(seg, len(ia)))
+        rows = main.shape[0] // comm.size(mesh)
+        lo = comm.rank(mesh) * rows
+        block = prover._upload_main(air, main[lo:lo + rows], dev)
+        comm.reset_stats()
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        t0 = time.time()
+        lde = prover._lde(block, std=True, mesh=mesh)
+        torch.cuda.synchronize(dev)
+        t1 = time.time()
+        tree = merkle.commit_rows_sharded(lde, mesh)
+        torch.cuda.synchronize(dev)
+        out["lde"] = {"shape": (main.shape[0], main.shape[1]),
+                      "lde_s": t1 - t0, "commit_s": time.time() - t1,
+                      "root": tree.root, "comm": dict(comm.STATS)}
+    return out
+
+
+def mesh_lines(card, tag: str, ranks: list) -> None:
+    for r in ranks:
+        comm_s = ", ".join(f"{op} {c} calls {b / 2**20:.2f} MiB {t:.3f} s"
+                           for op, (c, b, t) in sorted(r["comm"].items()))
+        log(f"{card} | [mesh] {tag} rank {r['rank']} on {r['device']}: "
+            f"prove_segments {r['s']:.3f} s, {r['counts']['poseidon2_leaf']} "
+            f"leaf launches, peak device memory {r['peak_gib']:.2f} GiB; "
+            f"collectives ({r['transport']}): {comm_s}")
+
+
+def mesh_phase(dev, card, fx, spin, spin_seals) -> dict:
+    """13: (a) MESH_FIXTURE_RANKS ranks on the card prove phase 4's
+    fixture spin segment with ``prove_segments(mesh=...)``: the seals
+    must hash to the fixture digests; (b) MESH_SPIN_RANKS ranks prove
+    phase 5's spin segment: the seals must equal phase 5's word for word
+    and verify, and the main group's sharded LDE and commit are timed
+    against the unsharded ``_lde`` + ``commit_rows`` at the same shape
+    (same root). Every rank's seals must equal every other rank's.
+    Returns the leaf launches of both runs' proves, summed over ranks."""
+    from zeth_tpu_torch import kernels
+    from zeth_tpu_torch.circuits import rv32im
+    from zeth_tpu_torch.hash import merkle
+    from zeth_tpu_torch.parallel import multihost
+    from zeth_tpu_torch.zkp import prover
+    launches = {name: 0 for name in kernels.NAMES}
+    t_phase = time.time()
+    seg, ia, iw, entry, claim = spin
+    runs = (("a", MESH_FIXTURE_RANKS, fx["spin_iters"], fx["segment_po2"]),
+            ("b", MESH_SPIN_RANKS, ((1 << SPIN_PO2) - 4096) * 3 // 2,
+             SPIN_PO2))
+    for tag, d, iters, seg_po2 in runs:
+        t0 = time.time()
+        ranks = multihost.launch(mesh_rank, d, iters, seg_po2, tag == "b",
+                                 threads=max(1, 8 // d), timeout=600)
+        wall = time.time() - t0
+        mesh_lines(card, f"({tag}) D={d}", ranks)
+        for r in ranks[1:]:
+            if not same_seals(r["seals"], ranks[0]["seals"]):
+                raise SystemExit(f"mesh ({tag}): rank {r['rank']}'s seals "
+                                 "differ from rank 0's")
+        got = ranks[0]["seals"]
+        if tag == "a":
+            if (sha(got[0]), sha(got[1])) != (fx["seal_sha256"],
+                                              fx["paging_sha256"]):
+                raise SystemExit("mesh (a): the sharded seals differ from "
+                                 "the fixture digests")
+            what = "equal the fixture digests"
+        else:
+            if not same_seals(got, spin_seals):
+                raise SystemExit("mesh (b): the sharded seals differ from "
+                                 "phase 5's")
+            t1 = time.time()
+            rv32im.verify_segments([got[0]], [got[1]], claim, ia, iw, entry,
+                                   device=dev)
+            what = (f"equal phase 5's word for word, verify_segments "
+                    f"{time.time() - t1:.3f} s")
+        for r in ranks:
+            for name in launches:
+                launches[name] += r["counts"][name]
+        require_launches({n: sum(r["counts"][n] for r in ranks)
+                          for n in launches}, f"mesh ({tag})")
+        log(f"{card} | [mesh] ({tag}) spin({iters}) po2="
+            f"{rv32im.choose_po2(seg, len(ia)) if tag == 'b' else fx['po2']} "
+            f"over D={d} ranks on one card: every rank's seals equal, "
+            f"{what}; slowest rank {max(r['s'] for r in ranks):.3f} s, "
+            f"launch with rank start-up {wall:.3f} s")
+    # (b)'s main group: sharded LDE + commit against the unsharded ones
+    sh = [r["lde"] for r in ranks]
+    air = rv32im.Rv32imAir(ia, iw)
+    main, _ = air.witgen(seg, rv32im.choose_po2(seg, len(ia)))
+    block = prover._upload_main(air, main, dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    lde = prover._lde(block, std=True)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    tree = merkle.commit_rows(lde)
+    torch.cuda.synchronize()
+    lde_s, commit_s = t1 - t0, time.time() - t1
+    if any(not np.array_equal(x["root"], tree.root) for x in sh):
+        raise SystemExit("mesh (b): the sharded main root differs from the "
+                         "unsharded one")
+    for r, x in zip(ranks, sh):
+        moved = ", ".join(f"{op} {c} calls {b / 2**20:.2f} MiB {t:.3f} s"
+                          for op, (c, b, t) in sorted(x["comm"].items()))
+        log(f"{card} | [mesh] (b) main group {x['shape']} rank {r['rank']}: "
+            f"sharded LDE {x['lde_s']:.3f} s + commit {x['commit_s']:.3f} s "
+            f"({moved}); unsharded _lde {lde_s:.3f} s + commit_rows "
+            f"{commit_s:.3f} s; same root")
+    log(f"{card} | [mesh] phase 13: {time.time() - t_phase:.1f} s")
+    del block, lde, tree
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the "
@@ -1282,7 +1448,7 @@ def main() -> None:
 
 def run_phases(dev, card, t_start: float, tmp: str, oracle,
                validated) -> None:
-    """Phases 3-13 (`oracle` and `validated`: the pending results of
+    """Phases 3-14 (`oracle` and `validated`: the pending results of
     ``host_aux_oracle`` and ``cli_validate``)."""
     from zeth_tpu_torch import kernels, ntt, zkvm
     from zeth_tpu_torch.circuits import rv32im
@@ -1356,6 +1522,8 @@ def run_phases(dev, card, t_start: float, tmp: str, oracle,
                                                        device=dev))
     if not same_seals(staged, (seal, pg_seal)):
         raise SystemExit("the stage-timed spin prove gave other seals")
+    # phase 13 proves this segment again over several ranks
+    spin, spin_seals = (seg, ia, iw, entry, claim), (seal, pg_seal)
     del seg, staged
     torch.cuda.empty_cache()
 
@@ -1428,8 +1596,12 @@ def run_phases(dev, card, t_start: float, tmp: str, oracle,
 
     # 12. the CLI: validate a fixture block, prove block 101 on the card
     cli_launches = cli_phase(dev, card, tmp, validated)
+    torch.cuda.empty_cache()
 
-    # 13. results
+    # 13. the multi-device path: several ranks on the one card
+    mesh_launches = mesh_phase(dev, card, fx, spin, spin_seals)
+
+    # 14. results
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=name, **KERNELS[name], launches=launches[name],
@@ -1439,7 +1611,8 @@ def run_phases(dev, card, t_start: float, tmp: str, oracle,
                                "receipt": receipt_launches[name],
                                "succinct": succinct_launches[name],
                                "cli": cli_launches[name],
-                               "streamed": streamed_launches[name]},
+                               "streamed": streamed_launches[name],
+                               "mesh": mesh_launches[name]},
              **results[name]) for name in kernels.NAMES]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -63,7 +63,9 @@ def test_every_port_module_imports_without_jax():
                  "recursion.compiler", "recursion.succinct",
                  "recursion.scheduler", "app.evm", "app.bn254",
                  "app.preflight", "app.rpc_proxy", "app.cli",
-                 "app.run_parallel", "zkp.groth16", "mxu"):
+                 "app.run_parallel", "zkp.groth16", "mxu", "parallel",
+                 "parallel.comm", "parallel.dist_ntt", "parallel.commit",
+                 "parallel.multihost"):
         assert "zeth_tpu_torch." + name in names
 
 
@@ -209,6 +211,12 @@ def _default_device_calls():
         "prove_segments": lambda: (lambda s, ia, iw: rv32im.prove_segments(
             [s], ia, iw))(*segment()),
         "prove_segment": lambda: rv32im.prove_segment(*segment()),
+        # with a mesh the device is resolved before the mesh is used
+        "prove(mesh)": lambda: prover.prove(*toy(), mesh=object()),
+        "prove_segments(mesh)": lambda: (
+            lambda s, ia, iw: rv32im.prove_segments([s], ia, iw,
+                                                    mesh=object()))(
+            *segment()),
         "keccak.prove_batch": lambda: keccak.prove_batch(
             np.zeros((1, 25), np.uint64)),
         "bigint2.prove_batch": lambda: bigint2.prove_batch([(3, 5, 7)]),
@@ -256,7 +264,9 @@ def _empty_seal():
 
 @pytest.mark.parametrize("entry", ["to_tensor", "grind", "commit_main",
                                    "prove", "prove_segments",
-                                   "prove_segment", "keccak.prove_batch",
+                                   "prove_segment", "prove(mesh)",
+                                   "prove_segments(mesh)",
+                                   "keccak.prove_batch",
                                    "bigint2.prove_batch",
                                    "sha256.prove_batch",
                                    "LocalProver.prove", "verify",

@@ -18,6 +18,9 @@ reference's module names, so each module's counterpart is easy to find:
 - ``app``, ``cc``, ``guest`` the stateless-client guest's front end: input
                              model and encoder, the C compiler, the guest's
                              C sources (copies)
+- ``parallel``               the multi-device path: torch.distributed
+                             bring-up, the distributed four-step NTT and
+                             LDE, sharded Merkle commits, collectives
 - ``convert``                numpy uint32 <-> int32 tensor conversion
 
 The port imports ``torch`` and never ``jax``, and nothing of the reference

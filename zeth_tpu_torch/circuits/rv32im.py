@@ -2471,7 +2471,8 @@ def choose_po2(seg, image_len: int) -> int:
     return max(int(np.ceil(np.log2(need))), 7)
 
 
-def prove_segments(segments, image_addrs, image_words, device=None):
+def prove_segments(segments, image_addrs, image_words, device=None,
+                   mesh=None):
     """Prove a chain of executor segments on `device` (None: the CUDA
     card; without one the call raises).
 
@@ -2484,26 +2485,41 @@ def prove_segments(segments, image_addrs, image_words, device=None):
     proved inline, from the challenge callback (the two transcripts are
     independent, so the seals equal the reference's, which proves it on
     a worker thread).
+
+    mesh: every rank of a ``rows`` mesh calls this with the same
+    segments; the rv32im proofs are sharded over the ranks
+    (``prover.prove(mesh=...)``). The paging companion stays unsharded,
+    as in the reference: rank 0 alone builds its witness, commits and
+    proves it, and broadcasts its root (before the rv32im transcript
+    needs it) and its seal. Every rank returns the same seals.
     """
     from ..hash import pagetree as PT_
+    from ..parallel import comm
     from . import paging as paging_mod
-    device = resolve_device(device)
+    device = resolve_device(device, mesh)
+    lead = mesh is None or comm.rank(mesh) == 0
     air = _air_for_image(image_addrs, image_words)
     pg_air = paging_mod.PagingAir()
-    tree = PT_.SparsePageTree(image_addrs, image_words)
+    tree = PT_.SparsePageTree(image_addrs, image_words) if lead else None
     zero4 = np.zeros(4, np.uint64)
     seals, pg_seals = [], []
     for seg in segments:
+        pn = prep = postp = tch = r0 = r1 = pg_main = pg_commit = None
+        pg_root = None
         with prover_mod._Stage("paging witness + commit", device):
-            pn, prep, postp, tch, sibs, r0, r1 = \
-                paging_mod.segment_witness(tree, seg.mem_addrs,
-                                           seg.mem_pre, seg.mem_post)
-            # the paging MAIN trace is independent of its publics; commit
-            # it first so its root can pre-seed the rv32im transcript
-            pg_main, _ = pg_air.witgen(pn, prep, postp, tch, sibs, r0, r1,
-                                       zero4, zero4)
-            pg_root, pg_commit = prover_mod.commit_main(pg_air, pg_main,
-                                                        device)
+            if lead:
+                pn, prep, postp, tch, sibs, r0, r1 = \
+                    paging_mod.segment_witness(tree, seg.mem_addrs,
+                                               seg.mem_pre, seg.mem_post)
+                # the paging MAIN trace is independent of its publics;
+                # commit it first so its root can pre-seed the rv32im
+                # transcript
+                pg_main, _ = pg_air.witgen(pn, prep, postp, tch, sibs, r0,
+                                           r1, zero4, zero4)
+                pg_root, pg_commit = prover_mod.commit_main(pg_air, pg_main,
+                                                            device)
+            if mesh is not None:
+                pg_root = comm.broadcast_object(pg_root, mesh)
 
         with prover_mod._Stage("rv32im witgen (host)", device):
             po2 = choose_po2(seg, len(image_addrs))
@@ -2519,17 +2535,18 @@ def prove_segments(segments, image_addrs, image_words, device=None):
                pg_main=pg_main, pg_commit=pg_commit):
             g4 = H.ext(np.asarray(sampled[4], np.uint64))
             g5 = H.ext(np.asarray(sampled[5], np.uint64))
-            with prover_mod._Stage("paging touch sums (host)", device):
-                pg_pubs = paging_mod.PagingAir.pack_publics(
-                    sampled[4], sampled[5], r0, r1,
-                    paging_mod._touch_sum(pn, prep, tch, sampled[4],
-                                          sampled[5]),
-                    paging_mod._touch_sum(pn, postp, tch, sampled[4],
-                                          sampled[5]))
-            with prover_mod._Stage("paging prove", device):
-                done["pg"] = prover_mod.prove(pg_air, pg_main, pg_pubs,
-                                              main_commit=pg_commit,
-                                              device=device)
+            if lead:
+                with prover_mod._Stage("paging touch sums (host)", device):
+                    pg_pubs = paging_mod.PagingAir.pack_publics(
+                        sampled[4], sampled[5], r0, r1,
+                        paging_mod._touch_sum(pn, prep, tch, sampled[4],
+                                              sampled[5]),
+                        paging_mod._touch_sum(pn, postp, tch, sampled[4],
+                                              sampled[5]))
+                with prover_mod._Stage("paging prove", device):
+                    done["pg"] = proof_mod.encode(prover_mod.prove(
+                        pg_air, pg_main, pg_pubs, main_commit=pg_commit,
+                        device=device))
             g5p = H.ext_powers(g5, 3)
             with prover_mod._Stage("boundary list sums (host)", device):
                 return {"d0": _list_sum(init_list, g4, g5p),
@@ -2537,20 +2554,24 @@ def prove_segments(segments, image_addrs, image_words, device=None):
 
         with prover_mod._Stage("rv32im prove", device):
             proof = prover_mod.prove(air, main, publics, derived_extra=dx,
-                                     extra_mix=pg_root, device=device)
+                                     extra_mix=pg_root, device=device,
+                                     mesh=mesh)
         seals.append(proof_mod.encode(proof))
-        pg_proof = done["pg"]
-        assert (np.asarray(pg_proof.roots["main"], np.uint64)
-                == pg_root).all()
-        pg_seals.append(proof_mod.encode(pg_proof))
+        pg_seal = done.get("pg")
+        if mesh is not None:
+            pg_seal = comm.broadcast_object(pg_seal, mesh)
+        assert (np.asarray(proof_mod.decode(pg_seal).roots["main"],
+                           np.uint64) == pg_root).all()
+        pg_seals.append(pg_seal)
     return seals, pg_seals
 
 
-def prove_segment(seg, image_addrs, image_words, device=None):
+def prove_segment(seg, image_addrs, image_words, device=None, mesh=None):
     """Prove one executor segment starting from the pristine image
     (single-segment guests / benches) on `device` (None: the CUDA card);
-    returns (seal, paging_seal)."""
-    seals, pg_seals = prove_segments([seg], image_addrs, image_words, device)
+    returns (seal, paging_seal). `mesh`: as ``prove_segments``."""
+    seals, pg_seals = prove_segments([seg], image_addrs, image_words, device,
+                                     mesh)
     return seals[0], pg_seals[0]
 
 

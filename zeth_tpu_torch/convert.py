@@ -15,16 +15,21 @@ import torch
 from .hostmath import P
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, mesh=None) -> torch.device:
     """The device an entry point runs on: the CUDA card unless the caller
     names another. With ``device=None`` and no card this raises; it never
-    falls back to the CPU."""
+    falls back to the CPU. With a `mesh` each rank's shard goes to card
+    ``local_rank % device_count`` (ranks beyond the card count share
+    cards)."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError(
             "zeth_tpu_torch runs on a CUDA device by default and none is "
             "available; pass device=\"cpu\" to run on the CPU")
+    if mesh is not None:
+        from .parallel.multihost import local_rank
+        return torch.device("cuda", local_rank() % torch.cuda.device_count())
     return torch.device("cuda")
 
 

@@ -6,7 +6,10 @@ children are 2i and 2i+1. The leaf digests come from ``leaf_hash`` (the
 CUDA kernel for a CUDA matrix), each level above them is hashed on the
 device by ``hash_pairs`` in chunks of pairs, and levels of at most
 ``HOST_LEVELS_AT`` digests finish on the host in numpy. Queried-path opening gathers only
-the needed digests; verification runs on the host.
+the needed digests; verification runs on the host. A matrix sharded in
+row blocks over a mesh's ranks commits to a ``ShardedMerkleTree``
+(``commit_rows_sharded``): each rank's subtree, and the top levels over
+the gathered subtree roots on every rank.
 """
 
 from __future__ import annotations
@@ -132,6 +135,72 @@ def _host_levels(cur_m: np.ndarray) -> list:
         std = P2.hash_pairs_np(std[0::2], std[1::2])
         out.append(H.to_monty_np(std))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Row-block-sharded trees (the multi-device path)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ShardedMerkleTree:
+    """The tree of a matrix whose rows are sharded in contiguous blocks
+    over the D ranks of a mesh (D a power of two). Each rank keeps its
+    block's subtree (``local``); every rank holds the top log2(D) levels
+    (``top``: top[0] = root (1, 8), top[-1] = the D subtree roots (D, 8),
+    Montgomery numpy), built from the gathered subtree roots. The root
+    equals ``commit_rows`` of the whole matrix."""
+    local: MerkleTree
+    top: list
+    mesh: object
+    device: torch.device
+
+    @property
+    def root(self) -> np.ndarray:
+        """Root digest in standard form (host numpy uint64, shape (8,))."""
+        return H.from_monty_np(self.top[0][0])
+
+    def open_many(self, indices: list) -> list:
+        """Sibling paths (depth, 8) standard form for many global leaves,
+        the same on every rank. The bottom of a path comes from the rank
+        that owns the leaf: each rank reads the paths of the local
+        indices in its subtree, the fixed-size (Q, depth, 8) results are
+        gathered, and each query takes its owner's; the top log2(D)
+        siblings come from the replicated top levels."""
+        from ..parallel import comm
+        m = self.local.n_leaves
+        idx = np.asarray(indices, np.int64)
+        owner = idx // m
+        bottom = np.stack(self.local.open_many((idx % m).tolist())) \
+            .astype(np.int64)                                 # (Q, dl, 8)
+        got = comm.all_gather(torch.from_numpy(bottom).to(self.device),
+                              self.mesh).cpu().numpy()
+        bottom = got[owner, np.arange(idx.shape[0])].astype(np.uint64)
+        top_std = [H.from_monty_np(lay) for lay in reversed(self.top[1:])]
+        tops = np.stack([np.stack([lay[(s >> k) ^ 1]
+                                   for k, lay in enumerate(top_std)])
+                         if top_std else np.zeros((0, 8), np.uint64)
+                         for s in owner.tolist()])
+        return list(np.concatenate([bottom, tops], axis=1))
+
+
+def commit_rows_sharded(matrix, mesh) -> ShardedMerkleTree:
+    """Commit this rank's contiguous row block of a sharded matrix:
+    its subtree by ``commit_rows`` (the leaf kernel on a card), the D
+    subtree roots gathered and folded on every rank."""
+    from ..parallel import comm
+    d = comm.size(mesh)
+    assert d & (d - 1) == 0, "the rank count must be a power of two"
+    local = commit_rows(matrix)
+    lay0 = local.layers[0]
+    sub = lay0 if isinstance(lay0, torch.Tensor) else torch.from_numpy(
+        np.asarray(lay0, np.uint32).view(np.int32))
+    roots = comm.all_gather(sub[0].to(matrix.device), mesh)       # (D, 8)
+    roots = roots.cpu().numpy().view(np.uint32)
+    top = [roots] + _host_levels(roots)
+    top.reverse()
+    return ShardedMerkleTree(local=local, top=top, mesh=mesh,
+                             device=matrix.device)
 
 
 # ---------------------------------------------------------------------------

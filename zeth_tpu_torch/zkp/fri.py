@@ -99,13 +99,15 @@ def _inv_x0_table(shift: int, n: int) -> np.ndarray:
     return H.powers(H.rou_rev(n), m) * np.uint64(s_inv) % np.uint64(P)
 
 
-def prove(evals, shift: int, degree: int, transcript: Transcript):
+def prove(evals, shift: int, degree: int, transcript: Transcript,
+          mesh=None):
     """FRI commit + query phase.
 
     evals: (degree*BLOWUP, 4) Montgomery tensor -- evaluations of a
     degree-<`degree` ext polynomial on the coset shift*<w_N>.
     Returns (FriProof, query_indices); the caller must open its own trace
-    commitments at the same query indices.
+    commitments at the same query indices. With a mesh every rank runs
+    the same FRI on the whole `evals`, and the ranks share the grind.
     """
     from .prover import _Stage
     n0 = evals.shape[0]
@@ -138,7 +140,7 @@ def prove(evals, shift: int, degree: int, transcript: Transcript):
 
     # PoW grinding, then queries
     with _Stage("  fri grind"):
-        nonce = transcript.grind(POW_BITS, device)
+        nonce = transcript.grind(POW_BITS, device, mesh)
     qs = [transcript.sample_index(n0) for _ in range(QUERIES)]
     proof = FriProof(
         layer_roots=[t.root for (t, _, _, _) in layers],

@@ -23,9 +23,9 @@ stage. An AIR with a ``main_bit_mask`` ships its main trace bit-packed
 Every group takes the radix-2 ``_lde``: the reference's four-step LDE
 (``mxu.coset_lde_fs``) gives the same words and is slower on the card
 at every shape the reference hands it. The streamed main group's query
-rows are one exact field product (``_eval_rows_at_points``). The
-reference's mesh path has no counterpart here. Seals equal the
-reference's word for word.
+rows are one exact field product (``_eval_rows_at_points``). With a
+``mesh`` (``prove``'s docstring) the row-indexed stages run sharded over
+``torch.distributed`` ranks. Seals equal the reference's word for word.
 """
 
 from __future__ import annotations
@@ -45,6 +45,8 @@ from .. import mxu, ntt, staging
 from ..convert import resolve_device
 from ..hash import merkle
 from ..hostmath import GENERATOR, P, RINV
+from ..parallel import comm
+from ..parallel.dist_ntt import dist_coset_lde
 from . import fri, tape
 from .air import Air
 from .transcript import Transcript
@@ -212,12 +214,31 @@ def _by_columns(fn, x, rows_out: int):
     return out
 
 
-def _lde(dev, std: bool):
+def _lde(dev, std: bool, mesh=None):
     """Column-chunked LDE of an (n, c) tensor (standard form if `std`,
-    else Montgomery) into a resident (4n, c) Montgomery tensor."""
-    return _by_columns(
-        lambda ch: _lde_group(F.to_monty(ch) if std else ch.contiguous())[1],
-        dev, BLOWUP * dev.shape[0])
+    else Montgomery) into a resident (4n, c) Montgomery tensor. With a
+    mesh, `dev` is this rank's row block of the trace and the result its
+    row block of the LDE (``parallel.dist_coset_lde``)."""
+    def lde(ch):
+        ch = F.to_monty(ch) if std else ch.contiguous()
+        if mesh is None:
+            return _lde_group(ch)[1]
+        return dist_coset_lde(ch, mesh)
+    return _by_columns(lde, dev, BLOWUP * dev.shape[0])
+
+
+def _commit(lde, mesh=None):
+    """The Merkle tree of an LDE: one rank's subtree and the replicated
+    top levels with a mesh."""
+    if mesh is None:
+        return merkle.commit_rows(lde)
+    return merkle.commit_rows_sharded(lde, mesh)
+
+
+def _gather_rows(x, mesh):
+    """This rank's row block of a sharded tensor -> the whole tensor on
+    every rank."""
+    return comm.all_gather(x, mesh).reshape((-1,) + tuple(x.shape[1:]))
 
 
 # -- bit-packed main upload -------------------------------------------------------
@@ -457,14 +478,31 @@ def _check_tape(air: Air, alpha: np.ndarray, publics):
     return tp, pubs_s, H.ext_powers(alpha, tp.n_stage)
 
 
+def _halo(tp, ldes: dict, mesh) -> dict:
+    """Per group, the first ``STRIDE * max_offset`` rows of the next
+    rank's LDE block (rank 0's for the last rank): the rows the tape's
+    next-trace-row leaves read past the end of this rank's block."""
+    h = tape.STRIDE * tape.max_offset(tp)
+    nxt = (comm.rank(mesh) + 1) % comm.size(mesh)
+    return {g: comm.all_gather(lde[:h], mesh)[nxt]
+            for g, lde in ldes.items() if lde.shape[1]}
+
+
 def _check_group(air: Air, ldes: dict, alpha: np.ndarray, publics,
-                 challenges, n: int):
-    """Build the check group: Q = mix(C_i)/Z split into 16 base columns."""
+                 challenges, n: int, mesh=None):
+    """Build the check group: Q = mix(C_i)/Z split into 16 base columns.
+    With a mesh each rank evaluates the tape on its LDE row block,
+    extended by the halo of the next rank's first rows (cyclic); the
+    (4n, 4) mix is gathered and finished on every rank."""
     tp, pubs_s, alpha_pows = _check_tape(air, alpha, publics)
     dev = next(iter(ldes.values())).device
+    halo = None if mesh is None else _halo(tp, ldes, mesh)
     with _Stage(f"  constraint tape ({tp.ops.shape[0]} ops, "
                 f"{tp.n_stage} constraints)", dev):
-        acc = tape.eval_check(tp, ldes, pubs_s, challenges, alpha_pows)
+        acc = tape.eval_check(tp, ldes, pubs_s, challenges, alpha_pows,
+                              halo=halo)
+    if mesh is not None:
+        acc = _gather_rows(acc, mesh)
     return _finish_check(acc, n)
 
 
@@ -493,14 +531,16 @@ def _check_group_streamed(air: Air, coeffs1, ldes: dict, alpha: np.ndarray,
 # -- DEEP taps and combination --------------------------------------------------
 
 
-def _rows_dot(rows, w, stride: int = BLOWUP):
+def _rows_dot(rows, w, stride: int = BLOWUP, mesh=None):
     """sum_k rows[stride*k, c] * w[k, e] (Montgomery) -> (c, e).
 
     rows: (stride*n, c) Montgomery -- a (4n, c) LDE read at its stride-4
     rows, or (stride 1) one coset's (n, c) evaluations; w: (n, e)
     Montgomery. Products are reduced per term and summed in int64 (exact:
     the order of the additions does not matter), then scaled by R^-1
-    once."""
+    once. With a mesh `rows` and `w` are this rank's row blocks: the D
+    reduced partial sums add exactly in int64 (all_reduce) before the
+    last reduction."""
     c = rows.shape[1]
     n, e = w.shape
     chunk = max(1, min(n, F.CHUNK_ELEMS // 4 // max(c * e, 1)))
@@ -511,7 +551,10 @@ def _rows_dot(rows, w, stride: int = BLOWUP):
         t = r[:, :, None] * w[k0:k1].to(torch.int64)[:, None, :]
         acc += torch.fmod(t, P).sum(dim=0)
         del r, t
-    return torch.fmod(torch.fmod(acc, P) * RINV, P).to(torch.int32)
+    acc = torch.fmod(acc, P)
+    if mesh is not None:
+        acc = torch.fmod(comm.all_reduce_sum(acc, mesh), P)
+    return torch.fmod(acc * RINV, P).to(torch.int32)
 
 
 def _point_inverses(x_pows, z_monty):
@@ -529,7 +572,7 @@ def _point_inverses(x_pows, z_monty):
     return out
 
 
-def _taps_fused(groups, z_m, zg_m, n: int, strides):
+def _taps_fused(groups, z_m, zg_m, n: int, strides, mesh=None):
     """Every DEEP tap plus the (x - z)^-1 tables.
 
     groups: Montgomery row arrays, each read at its stride in `strides`
@@ -539,11 +582,17 @@ def _taps_fused(groups, z_m, zg_m, n: int, strides):
     inverse tables are reused by the DEEP combination. On the coset gH of
     size 4n: f(z) = K(z) * sum_i f(x_i) * x_i / (z - x_i) with
     K(z) = (z^4n - g^4n) / (4n * g^4n); every committed column has degree
-    < n, so its tap interpolates exactly from the n stride-4 rows.
+    < n, so its tap interpolates exactly from the n stride-4 rows. With a
+    mesh the groups are this rank's LDE row blocks, the point and inverse
+    tables its slice of the domain, and the taps sum over the ranks.
     """
     dev = z_m.device
     m4 = BLOWUP * n
-    x_std = ntt.power_table(H.rou_fwd(m4), m4, dev)
+    lo, rows = 0, m4
+    if mesh is not None:
+        rows = m4 // comm.size(mesh)
+        lo = comm.rank(mesh) * rows
+    x_std = ntt.power_table(H.rou_fwd(m4), m4, dev)[lo:lo + rows]
     x_pows = F.to_monty(torch.fmod(x_std * GENERATOR, P))
     inv_z = _point_inverses(x_pows, z_m)
     inv_zg = _point_inverses(x_pows, zg_m)
@@ -555,12 +604,13 @@ def _taps_fused(groups, z_m, zg_m, n: int, strides):
     def bary(zz_m, inv4):
         zn = F.ext_pow_const(zz_m, n)
         mk = F.neg(F.mul_std(F.ext_sub(zn, gn_m), den_inv))
-        return F.ext_mul(F.ext_mul_base(inv4, x4), mk.expand(n, 4))
+        return F.ext_mul(F.ext_mul_base(inv4, x4),
+                         mk.expand(x4.shape[0], 4))
 
     bw_pair = torch.cat([bary(z_m, inv_z[::4]), bary(zg_m, inv_zg[::4])],
                         dim=1)
-    outs = tuple(_rows_dot(rows, bw_pair, st)
-                 for rows, st in zip(groups, strides))
+    outs = tuple(_rows_dot(g, bw_pair, st, mesh)
+                 for g, st in zip(groups, strides))
     return outs, inv_z, inv_zg
 
 
@@ -625,10 +675,20 @@ def _deep_f0(mix4, beta_nz, cz, cpre, iz, izg):
     return out
 
 
-def _lde_query_rows(lde, qs):
-    """Standard-form rows of a resident LDE at the query indices."""
-    idx = torch.as_tensor(np.asarray(qs, np.int64), device=lde.device)
-    return _host_std(lde.index_select(0, idx))
+def _lde_query_rows(lde, qs, mesh=None):
+    """Standard-form rows of a resident LDE at the query indices. With a
+    mesh `lde` is this rank's row block: each rank reads the rows at the
+    queries' local indices, the fixed-size (Q, c) results are gathered,
+    and each query takes the rank that owns it."""
+    q = np.asarray(qs, np.int64)
+    m = lde.shape[0]
+    idx = torch.as_tensor(q % m, device=lde.device)
+    rows = lde.index_select(0, idx)
+    if mesh is not None:
+        owner = torch.as_tensor(q // m, device=lde.device)
+        rows = comm.all_gather(rows, mesh)[
+            owner, torch.arange(q.shape[0], device=lde.device)]
+    return _host_std(rows)
 
 
 # -- prove ----------------------------------------------------------------------------
@@ -636,15 +696,37 @@ def _lde_query_rows(lde, qs):
 
 def prove(air: Air, main_std: np.ndarray, publics: list[int],
           derived_extra=None, extra_mix=None, main_commit=None,
-          device=None) -> StarkProof:
+          device=None, mesh=None) -> StarkProof:
     """Prove one AIR execution on `device` (None: the CUDA card; without
     one the call raises). main_std: (n, main_cols) standard-form trace.
     The seal (``proof.encode``) equals the reference prover's for the
-    same inputs."""
-    device = resolve_device(device)
+    same inputs.
+
+    mesh: a 1-D ``DeviceMesh`` with a ``rows`` dimension over D ranks
+    (``parallel.pod_mesh``), every rank calling prove with the same
+    arguments. Each rank then holds the contiguous row block d of every
+    trace and LDE on its card (``cuda:(local_rank % cards)``, or the CPU
+    with ``device="cpu"``): the uploads, LDEs (``dist_coset_lde``),
+    Merkle commits (``merkle.commit_rows_sharded``), the constraint tape
+    (with a halo of the next rank's rows), the DEEP taps and the DEEP
+    combination run sharded. The check group's (4n, 4) mix and the DEEP
+    polynomial (4n, 4) are gathered, and ``_finish_check`` and FRI run
+    replicated (the ranks share FRI's grind); the query openings are
+    gathered from their owners.
+    Every rank runs the same transcript and returns the same proof, whose
+    seal equals the unsharded one. The main group is never streamed and
+    the aux group is built by the host ``build_aux``, as in the
+    reference's mesh path."""
+    device = resolve_device(device, mesh)
     n, c_main = main_std.shape
     assert c_main == air.main_cols and n & (n - 1) == 0
     po2 = n.bit_length() - 1
+    if mesh is not None and main_commit is not None:
+        raise ValueError("prove: a pre-committed main group is not sharded")
+    lo, hi = 0, n                  # this rank's trace rows
+    if mesh is not None:
+        lo = comm.rank(mesh) * n // comm.size(mesh)
+        hi = lo + n // comm.size(mesh)
 
     t = Transcript()
     t.mix_values(np.array([po2] + [int(p) for p in publics], dtype=np.uint64))
@@ -652,10 +734,11 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
     # --- commit control / main ------------------------------------------
     # keep the standard-form device tensors when the AIR can build its aux
     # group on the device (no host aux matrix, no second big upload)
-    device_aux = hasattr(air, "build_aux_device")
+    device_aux = mesh is None and hasattr(air, "build_aux_device")
     # a main LDE too big to keep is coset-streamed (module comment above
-    # STREAM_MAIN_BYTES); a pre-committed main group stays resident
-    stream_main = (main_commit is None
+    # STREAM_MAIN_BYTES); a pre-committed or sharded main group stays
+    # resident
+    stream_main = (mesh is None and main_commit is None
                    and BLOWUP * n * air.main_cols * 4 > STREAM_MAIN_BYTES)
     main_coeffs = None
     ldes, trees, roots = {}, {}, {}
@@ -676,14 +759,14 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
             else:
                 src = main_std
             with _Stage(f"  {gname} upload", device):
-                dev = _upload_std(src, device) if gname == "control" \
-                    else _upload_main(air, src, device)
+                dev = _upload_std(src[lo:hi], device) if gname == "control" \
+                    else _upload_main(air, src[lo:hi], device)
             if gname == "main" and stream_main:
                 with _Stage("  main coefficients", device):
                     main_coeffs = _shifted_coeffs(dev)
             else:
                 with _Stage(f"  {gname} lde", device):
-                    ldes[gname] = _lde(dev, std=True)
+                    ldes[gname] = _lde(dev, std=True, mesh=mesh)
             if device_aux:
                 dev_std[gname] = dev
             del dev
@@ -693,7 +776,7 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
                         [merkle.leaf_digests(_coset_eval(main_coeffs, r, n))
                          for r in range(BLOWUP)]))
                 else:
-                    trees[gname] = merkle.commit_rows(ldes[gname])
+                    trees[gname] = _commit(ldes[gname], mesh)
             roots[gname] = trees[gname].root
         t.mix(roots[gname])
 
@@ -724,14 +807,15 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
                 with _Stage("  aux witgen (host)", device):
                     aux_std = air.build_aux(np.asarray(main_std, np.uint64),
                                             challenges)
-                ldes["aux"] = _lde(_upload_std(aux_std, device), std=True)
+                ldes["aux"] = _lde(_upload_std(aux_std[lo:hi], device),
+                                   std=True, mesh=mesh)
                 del aux_std
-            trees["aux"] = merkle.commit_rows(ldes["aux"])
+            trees["aux"] = _commit(ldes["aux"], mesh)
             roots["aux"] = trees["aux"].root
         t.mix(roots["aux"])
     else:
-        ldes["aux"] = torch.zeros((BLOWUP * n, 0), dtype=torch.int32,
-                                  device=device)
+        ldes["aux"] = torch.zeros((BLOWUP * (hi - lo), 0),
+                                  dtype=torch.int32, device=device)
 
     # --- composition / check group --------------------------------------
     alpha = t.sample_ext()
@@ -741,10 +825,10 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
                                                publics, challenges, n)
         else:
             check_cols = _check_group(air, ldes, alpha, publics, challenges,
-                                      n)
-        ldes["check"] = _lde(check_cols, std=False)
+                                      n, mesh)
+        ldes["check"] = _lde(check_cols[lo:hi], std=False, mesh=mesh)
         del check_cols
-        trees["check"] = merkle.commit_rows(ldes["check"])
+        trees["check"] = _commit(ldes["check"], mesh)
         roots["check"] = trees["check"].root
     t.mix(roots["check"])
 
@@ -763,7 +847,7 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
     with _Stage("taps", device):
         gv_dev, inv_z, inv_zg = _taps_fused(
             tuple(s4[g][0] for g in gnames), _to_dev(z, device),
-            _to_dev(zg, device), n, tuple(s4[g][1] for g in gnames))
+            _to_dev(zg, device), n, tuple(s4[g][1] for g in gnames), mesh)
         group_vals = {g: _host_std(v) for g, v in zip(gnames, gv_dev)}
     tap_vals = []
     for (gname, offset) in TAP_STREAMS:
@@ -801,20 +885,23 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
         mix_n = _deep_mix_s4(tuple(s4[g][0] for g in gnames), bps_z,
                              n_zg_groups, tuple(s4[g][1] for g in gnames))
         del s4, bps_z, gv_dev
-        f0 = _deep_f0(_extend_coset_evals(mix_n),
-                      _to_dev(beta_pows[n_z], device),
+        # the mix's blowup-4 extension: an unshifted LDE (with a mesh,
+        # this rank's rows of it)
+        mix4 = _extend_coset_evals(mix_n) if mesh is None \
+            else dist_coset_lde(mix_n, mesh, shift=1)
+        f0 = _deep_f0(mix4, _to_dev(beta_pows[n_z], device),
                       _to_dev(const_z, device), _to_dev(const_pre, device),
                       inv_z, inv_zg)
-        del mix_n, inv_z, inv_zg
+        del mix_n, mix4, inv_z, inv_zg
+        if mesh is not None:
+            f0 = _gather_rows(f0, mesh)
 
     # --- FRI + query openings -------------------------------------------
     with _Stage("fri", device):
-        fri_proof, qs = fri.prove(f0, GENERATOR, n, t)
+        fri_proof, qs = fri.prove(f0, GENERATOR, n, t, mesh)
     del f0
     openings = {}
     with _Stage("openings", device):
-        depth = len(trees[gnames[0]].layers) - 1
-        sib_idx = merkle._sibling_index_rows(qs, depth)
         for g in ("control", "main", "aux", "check"):
             if g not in gnames:
                 openings[g] = GroupOpening(
@@ -828,12 +915,9 @@ def prove(air: Air, main_std: np.ndarray, publics: list[int],
                 rows = _host_std(_eval_rows_at_points(
                     main_coeffs, _to_dev(pts, device), n))
             else:
-                rows = _lde_query_rows(ldes[g], qs)
-            sib_layers = merkle._gather_paths(trees[g].layers, sib_idx)
-            paths = [np.stack([sib_layers[d][qi] for d in range(depth)])
-                     if depth else np.zeros((0, 8), np.uint64)
-                     for qi in range(len(qs))]
-            openings[g] = GroupOpening(rows=rows, paths=paths)
+                rows = _lde_query_rows(ldes[g], qs, mesh)
+            openings[g] = GroupOpening(rows=rows,
+                                       paths=trees[g].open_many(qs))
 
     return StarkProof(air_name=air.name, po2=po2, publics=list(publics),
                       roots=roots, taps=taps, fri_proof=fri_proof,

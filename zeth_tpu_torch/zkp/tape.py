@@ -7,10 +7,12 @@ MUL: ``A*B``) and re-scheduled by level. The host half (``Capture``,
 ``SymOps``, ``capture``, ``lower``, ``eval_scalars``, ``build_levels``) is
 a jax-free copy of the reference; the device half evaluates the level
 program over blocks of LDE rows with torch (``eval_check``) and folds the
-alpha-mix of every constraint.
-
-The reference's scan interpreter (``_run_block``, its multi-chip mesh
-path) has no counterpart here yet.
+alpha-mix of every constraint. On a mesh each rank evaluates its own LDE
+row block, extended by a halo of the next rank's first rows
+(``eval_check(halo=...)``). The reference's scan interpreter
+(``_build_leafmat``, ``_build_leafblock``, ``_run_block``) is ported as
+the op-by-op ``run_block`` (``eval_check(single_block=True)``), a second
+evaluator the tests hold against the level schedule.
 """
 
 from __future__ import annotations
@@ -546,8 +548,14 @@ def _leveled_fn(key, lp: LevelProgram, nb: int, device,
     return fn
 
 
+def max_offset(tp: TapeProgram) -> int:
+    """The largest trace-row offset of any leaf of the tape."""
+    return max((off for _, _, off in tp.leaves), default=0)
+
+
 def eval_check(tp: TapeProgram, ldes: dict, publics, challenges,
-               alpha_pows_std: np.ndarray, stride: int = STRIDE):
+               alpha_pows_std: np.ndarray, stride: int = STRIDE,
+               halo: dict | None = None, single_block: bool = False):
     """Evaluate acc(x) = sum_i alpha^i * C_i(x) over the whole LDE domain.
 
     Returns an (N, 4) Montgomery int32 tensor (N = LDE rows). Rows are
@@ -558,10 +566,26 @@ def eval_check(tp: TapeProgram, ldes: dict, publics, challenges,
     coset's (n, c) evaluations (the streamed main group evaluates the
     check polynomial coset by coset; a strided view ``lde[r::4]`` of a
     resident LDE serves as coset r without a copy).
+
+    halo: with `ldes` one rank's contiguous row block of sharded LDEs,
+    per group the ``stride * max_offset(tp)`` rows that follow the block
+    (the next rank's first rows, cyclically): the block's last rows read
+    their next-trace-row leaves there instead of wrapping to the block's
+    own first rows. The result is then this block's rows of the whole
+    domain's evaluation. single_block: the whole domain in one call of
+    the op-by-op interpreter (``run_block`` over ``build_leafmat``), the
+    reference's mesh evaluator.
     """
     lde0 = next(iter(ldes.values()))
     device = lde0.device
     n = lde0.shape[0]
+    if single_block:
+        S = torch.as_tensor(eval_scalars(tp, publics, challenges)
+                            .view(np.int32), device=device)
+        W = torch.as_tensor(_to_monty_np(np.asarray(
+            alpha_pows_std, np.uint64)[:tp.n_stage]).view(np.int32),
+            device=device)
+        return run_block(build_leafmat(tp.leaves, ldes, stride), tp, S, W)
     lp = _level_program(tp)
     S = torch.as_tensor(H.from_monty_np(eval_scalars(tp, publics, challenges))
                         .astype(np.int64), device=device)
@@ -581,7 +605,11 @@ def eval_check(tp: TapeProgram, ldes: dict, publics, challenges,
     out = torch.empty((n, 4), dtype=torch.int32, device=device)
     for start in range(0, n - nb, nb):
         out[start:start + nb] = fn(raw, start, S, W)
-    tails = tuple(_wrap_tail(ldes[g], nb, stride) for g in gnames)
+    if halo is None:
+        tails = tuple(_wrap_tail(ldes[g], nb, stride) for g in gnames)
+    else:
+        tails = tuple(torch.cat([ldes[g][n - nb:], halo[g]], dim=0)
+                      for g in gnames)
     out[n - nb:] = fn(tails, 0, S, W)
     return out
 
@@ -589,6 +617,62 @@ def eval_check(tp: TapeProgram, ldes: dict, publics, challenges,
 def _wrap_tail(lde, nb: int, stride: int = STRIDE):
     """Last (nb) LDE rows extended by the first `stride` (wrap block)."""
     return torch.cat([lde[lde.shape[0] - nb:], lde[:stride]], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# The op-by-op interpreter (the reference's scan interpreter)
+# ---------------------------------------------------------------------------
+#
+# The reference's mesh path evaluates the tape op by op over one block of
+# rows (``_run_block``, a scan over the (T, 6) op rows). Here it is a
+# second evaluator beside the level schedule, with the reference's layout:
+# a register file B of [regs | stage | leaves] rows by block rows.
+
+
+def build_leafblock(specs, ldes: dict, start: int, nb: int,
+                    stride: int = STRIDE):
+    """(nb, n_leaves) Montgomery leaf matrix for LDE rows [start,
+    start + nb), wrapping at the end of the domain. specs: the tape's
+    (group, col, offset) leaves; '__one__' is the constant-one leaf."""
+    lde0 = next(iter(ldes.values()))
+    n = lde0.shape[0]
+    rows = (torch.arange(nb, device=lde0.device) + start) % n
+    out = torch.empty((nb, len(specs)), dtype=torch.int32,
+                      device=lde0.device)
+    for i, (g, c, off) in enumerate(specs):
+        if g == "__one__":
+            out[:, i] = F.mont_one()
+        else:
+            out[:, i] = ldes[g][(rows + stride * off) % n, c]
+    return out
+
+
+def build_leafmat(specs, ldes: dict, stride: int = STRIDE):
+    """(N, n_leaves) Montgomery leaf matrix over the whole domain."""
+    n = next(iter(ldes.values())).shape[0]
+    return build_leafblock(specs, ldes, 0, n, stride)
+
+
+def run_block(leaf_block, tp: TapeProgram, S, W):
+    """Interpret the tape op by op over one block of rows.
+
+    leaf_block: (nb, n_leaves) Montgomery; S: (s,) Montgomery scalars;
+    W: (n_stage, 4) Montgomery alpha powers. Each op writes
+    ``A*B`` (OP_MUL) or ``S[sa]*A + S[sb]*B`` (OP_LINC) into row dst of
+    the register file. Returns the (nb, 4) alpha-mix of the stage rows."""
+    nb = leaf_block.shape[0]
+    B = torch.cat([torch.zeros((tp.n_regs + tp.n_stage, nb),
+                               dtype=torch.int32, device=leaf_block.device),
+                   leaf_block.T], dim=0)
+    for opc, a, b, sa, sb, dst in tp.ops.tolist():
+        if opc == OP_MUL:
+            B[dst] = F.mul(B[a], B[b])
+        else:
+            B[dst] = F.add(F.mul(S[sa], B[a]), F.mul(S[sb], B[b]))
+    stage = B[tp.n_regs:tp.n_regs + tp.n_stage].to(torch.int64)
+    acc = [torch.fmod(F.mul(stage, W[:, c][:, None]).to(torch.int64)
+                      .sum(dim=0), P) for c in range(4)]
+    return torch.stack(acc, dim=1).to(torch.int32)
 
 
 _LEVEL_PROGS: dict = {}

@@ -19,6 +19,7 @@ import torch
 from ..convert import resolve_device
 from ..hash import poseidon2 as P2
 from ..hostmath import P
+from ..parallel import comm
 
 
 class Transcript:
@@ -106,11 +107,12 @@ class Transcript:
     # sampled element end in `bits` zero bits; the verifier replays the
     # mix and checks. Sampled before the FRI query indices.
 
-    def grind(self, bits: int, device=None) -> int:
+    def grind(self, bits: int, device=None, mesh=None) -> int:
         """Find, mix, and return a PoW nonce (batched search on `device`;
-        None: the CUDA card)."""
+        None: the CUDA card; with a mesh the ranks search in turns)."""
         mask = (1 << bits) - 1
-        nonce = grind_search(self.pool, bits, resolve_device(device))
+        nonce = grind_search(self.pool, bits, resolve_device(device, mesh),
+                             mesh)
         self.mix_values(np.array([nonce], dtype=np.uint64))
         v = self.sample()
         assert v & mask == 0
@@ -153,15 +155,27 @@ def grind_batch(pool_std: torch.Tensor, base: int, batch: int, bits: int):
     return int(torch.argmax(ok.to(torch.int8)))
 
 
-def grind_search(pool, bits: int, device) -> int:
-    """The smallest nonce whose mix passes the `bits` PoW check."""
+def grind_search(pool, bits: int, device, mesh=None) -> int:
+    """The smallest nonce whose mix passes the `bits` PoW check.
+
+    With a mesh of D ranks, round k has rank d search batch k*D + d; the
+    ranks' first hits of a round are gathered, and the lowest rank with
+    a hit holds the smallest passing nonce (every lower nonce was
+    searched in this round or an earlier one): the same nonce on every
+    rank, and the same as the search alone."""
     batch = GRIND_BATCH if device.type == "cuda" else GRIND_BATCH_CPU
     pool_std = torch.tensor(np.asarray(pool, np.uint64).astype(np.int64),
                             device=device)
+    d, r = (1, 0) if mesh is None else (comm.size(mesh), comm.rank(mesh))
     base = 0
     while True:
-        assert base + batch <= P, "grind: nonce space exhausted"
-        hit = grind_batch(pool_std, base, batch, bits)
+        assert base + d * batch <= P, "grind: nonce space exhausted"
+        mine = base + r * batch
+        hit = grind_batch(pool_std, mine, batch, bits)
+        hit = mine + hit if hit >= 0 else -1
+        if mesh is not None:
+            hits = comm.all_gather(torch.tensor([hit], device=device), mesh)
+            hit = next((int(h) for h in hits[:, 0].tolist() if h >= 0), -1)
         if hit >= 0:
-            return base + hit
-        base += batch
+            return hit
+        base += d * batch
