@@ -17,9 +17,14 @@ receipts. Phases, each of which exits non-zero on failure:
    (one nvcc per source, all started together);
 3. kernels: each kernel against its plain PyTorch version on the card,
    bit for bit, at the main path's shapes, with both times and the
-   least time the card could take for the same work; the leaf kernel
-   also hashes the bigint batch's claims row (one row of 2,479,200
-   limbs, one thread), timed alone. Then the exact int8 field products
+   least time the card could take for the same work: the leaf kernel
+   (one thread a row, the Merkle leaves) at LEAF_SHAPES, the sponge
+   kernel (one warp a row, the claims and publics digests) at
+   SPONGE_SHAPES; then both in turns (leaf, sponge, sponge, leaf) on one
+   long row of 65,536 and on a random bigint claims row (2,479,200
+   limbs), equal, with the roofline and the chain bound of a row (its
+   permutations times one permutation's critical path) at the SM clock
+   read beside them. Then the exact int8 field products
    (``zeth_tpu_torch.mxu``, ``torch._int_mm`` on the tensor cores): the
    four-step coset LDE (``mxu.coset_lde_fs``, which no path takes)
    against the radix-2 ``prover._lde`` that every path takes, at each
@@ -53,7 +58,9 @@ receipts. Phases, each of which exits non-zero on failure:
    call of the execution, built as ``zkvm.LocalProver`` builds them),
    each proved on the card untimed (launches, peak memory) and once with
    the stage timers (same seal), verified, its claims digest held equal
-   to the digest of the verified IO; segment 0's bound IO must be a
+   to the digest of the verified IO (and the block's bigint claims row
+   through the leaf kernel equal to the sponge kernel's digest of it,
+   ``sponge_row``'s); segment 0's bound IO must be a
    prefix of the proof-bound streams (the resolve); a flipped keccak
    seal word is rejected; small batches must hash to the fixture digests;
 10. receipt: ``zkvm.LocalProver`` and ``Receipt.verify`` on four guests
@@ -162,6 +169,28 @@ LEAF_SHAPES = [(1, 3, 20, 3), (7, 16, 20, 3), (1000, 37, 20, 3),
                (1 << 21, 84, 5, 1), (1 << 22, 1009, 3, 1)]
 # the bigint batch's claims row: 25,825 ops x 96 limbs
 CLAIMS_ROW = 25825 * 96
+# the Poseidon2 sponge kernel's (rows, cols, kernel calls, plain calls)
+# against hash_rows: edge cases and one long row, whose plain result the
+# leaf check has computed already (plain calls 0: reused)
+SPONGE_SHAPES = [(1, 3, 20, 3), (1, 16, 20, 3), (1, 17, 20, 3),
+                 (7, 16, 20, 3), (1000, 37, 20, 3), (1, 65536, 3, 0)]
+# the sponge kernel's critical path of one permutation, in dependent
+# instructions of poseidon2_sponge.cu as ptxas compiles them for sm_90a: a
+# Montgomery product 5 (IMAD.WIDE.U32, IMAD, IMAD.HI.U32, IMAD.X,
+# VIADDMNMX), a modular addition 2 (IADD3, VIADDMNMX), M4's 64-bit dot 3
+# and its reduction 4, a shuffle, warp reduction or select 1; each
+# counted at DEP_CYCLES, the latency between dependent integer
+# instructions on Hopper (a shuffle or reduction waits longer, so the bound
+# is a least time)
+MUL, ADD, XCHG, DOT, REDUCE = 5, 2, 1, 3, 4
+SBOX = 3 * MUL                                      # x^4 * x^3
+EXT_LAYER = (XCHG + DOT + REDUCE                    # M4 on each block
+             + XCHG + 3 * ADD + ADD + XCHG)         # block sums, add, lanes >= 24
+EXT_ROUND = ADD + SBOX + EXT_LAYER
+INT_ROUND = SBOX + MUL + ADD                        # cell 0's chain
+PERM_CHAIN = (ADD + EXT_LAYER + 8 * EXT_ROUND       # absorb, external rounds
+              + XCHG + ADD + 21 * INT_ROUND + XCHG)  # internal rounds
+DEP_CYCLES = 4
 
 # the (rows, columns) of the groups the reference prover gives its
 # four-step LDE (2^15 <= rows < 2^19, at most 256 columns) on these paths:
@@ -181,13 +210,27 @@ EVAL_SHAPE = (1 << 24, 84)
 MESH_FIXTURE_RANKS = 4
 MESH_SPIN_RANKS = 2
 
+# each kernel's main path names the path whose launches the kernels line
+# gives as "launches"
 KERNELS = {
     "poseidon2_leaf": {
         "route": "cuda",
         "source": "zeth_tpu_torch/kernels/csrc/poseidon2_leaf.cu",
         "replaces": "zeth_tpu/pallas/poseidon2.py:110",
+        "main_path": "evm",
+    },
+    "poseidon2_sponge": {
+        "route": "cuda",
+        "source": "zeth_tpu_torch/kernels/csrc/poseidon2_sponge.cu",
+        "replaces": "none: the one-row form of "
+                    "zeth_tpu/pallas/poseidon2.py:110's function, whose "
+                    "digests the JAX package computes on the host",
+        "main_path": "accel",
     },
 }
+# the paths that hash no claims or publics digest launch the leaf kernel
+# alone; every other path launches both
+LEAF_ONLY = ("poseidon2_leaf",)
 
 
 def log(msg: str) -> None:
@@ -235,16 +278,36 @@ def leaf_bound_ms(rows: int, cols: int) -> tuple:
         "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def leaf_shapes(dev, card, P, gen, shapes, plain_rows=None) -> tuple:
+def sm_mhz() -> int:
+    """The card's SM clock now, as nvidia-smi reads it."""
+    return int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()[0])
+
+
+def chain_bound_ms(cols: int, mhz: int) -> float:
+    """The least ms one warp can take for the sponge of a row of `cols` at
+    `mhz`: its permutations, each waiting on the last, times PERM_CHAIN
+    dependent instructions of DEP_CYCLES each."""
+    return max(1, -(-cols // 16)) * PERM_CHAIN * DEP_CYCLES / mhz * 1e-3
+
+
+def leaf_shapes(dev, card, P, gen, shapes, plain_rows=None,
+                keep=()) -> tuple:
     """The leaf kernel against hash_rows at each (rows, cols, kernel
     calls, plain calls) of `shapes`, timed at each. The plain version
     hashes the first `plain_rows` rows where that is fewer (the whole
     matrix's int64 state would not fit): then it is held equal there and
-    its time is not the shape's. A single-row launch is one thread
-    hashing one permutation after another: it is bound by latency, and no
-    throughput bound is given. Returns (max_abs_err, one dict per shape)."""
+    its time is not the shape's. The bound is ``leaf_bound_ms``'s at
+    every shape; a one-row launch (one thread, one permutation after
+    another) is further bound by its chain (``chain_bound_ms``, given
+    where the sponge kernel checks the same row). Returns (max_abs_err,
+    one dict per shape, {(rows, cols): (matrix, plain digests)} for the
+    shapes in `keep`)."""
     from zeth_tpu_torch.hash import poseidon2 as P2
-    worst, out = 0, []
+    worst, out, kept = 0, [], {}
     for rows_n, cols, reps, plain_reps in shapes:
         rows = torch.randint(0, P, (rows_n, cols), dtype=torch.int32,
                              device=dev, generator=gen)
@@ -264,8 +327,7 @@ def leaf_shapes(dev, card, P, gen, shapes, plain_rows=None) -> tuple:
             raise SystemExit(f"poseidon2_leaf disagrees with hash_rows at "
                              f"{(rows_n, cols)}: max_abs_err {err}")
         worst = max(worst, err)
-        bound, by = leaf_bound_ms(rows_n, cols) if rows_n > 1 \
-            else (None, "latency")
+        bound, by = leaf_bound_ms(rows_n, cols)
         out.append({"rows": rows_n, "cols": cols, "ms": ms,
                     "plain_ms": plain_ms if whole else None,
                     "bound_ms": bound, "bound_by": by})
@@ -273,39 +335,118 @@ def leaf_shapes(dev, card, P, gen, shapes, plain_rows=None) -> tuple:
             + ("" if whole else f" on the first {part.shape[0]} rows")
             + f", kernel {ms:.3f} ms, plain "
             + (f"{plain_ms:.3f} ms" if whole else "not measured")
-            + ", bound "
-            + (f"{bound:.3f} ms by {by}" if bound is not None
-               else "none (one thread: latency)"))
+            + f", bound {bound:.6f} ms by {by}")
+        if (rows_n, cols) in keep:
+            kept[(rows_n, cols)] = (rows, want, plain_ms)
         del rows, part, got, want
         torch.cuda.empty_cache()
-    return worst, out
+    return worst, out, kept
 
 
-def check_leaf_kernel(dev, card, P) -> dict:
-    """The leaf kernel against hash_rows at every shape of LEAF_SHAPES,
-    then timed on the bigint claims row."""
+def turns(card, what: str, fns: dict, reps: dict) -> dict:
+    """Each of `fns` ({name: call}) timed in turns, first, second,
+    second, first (CUDA events, `reps[name]` calls a turn), the SM clock
+    read after each turn. Returns {name: (last result, [ms, ms])} and, as
+    "mhz", the clocks read."""
+    a, b = list(fns)
+    got, clocks = {a: [None, []], b: [None, []]}, []
+    for name in (a, b, b, a):
+        got[name][0], ms = cuda_ms(fns[name], reps[name])
+        got[name][1].append(ms)
+        clocks.append(sm_mhz())
+        log(f"{card} | [kernels] {what} {name}: {ms:.3f} ms "
+            f"(SM clock {clocks[-1]} MHz)")
+    return {**{k: tuple(v) for k, v in got.items()}, "mhz": clocks}
+
+
+def check_poseidon2_kernels(dev, card, P) -> dict:
+    """The leaf kernel against hash_rows at every shape of LEAF_SHAPES;
+    the sponge kernel against hash_rows at every shape of SPONGE_SHAPES
+    (at (1, 65536) against the leaf check's plain result); then both
+    kernels on the one-row shapes in turns (leaf, sponge, sponge, leaf),
+    at (1, 65536) and on a random bigint claims row, which must hash
+    alike. Returns the kernels' results by name."""
     from zeth_tpu_torch.hash import poseidon2 as P2
     gen = torch.Generator(device=dev)
     gen.manual_seed(20)
-    worst, shapes = leaf_shapes(dev, card, P, gen, LEAF_SHAPES)
-    # the bigint claims row: its digest is held by the accel phase
-    row = torch.randint(0, P, (1, CLAIMS_ROW), dtype=torch.int32,
-                        device=dev, generator=gen)
-    P2.leaf_hash(row)
-    _, ms = cuda_ms(lambda: P2.leaf_hash(row), 2)
-    shapes.append({"rows": 1, "cols": CLAIMS_ROW, "ms": ms,
-                   "plain_ms": None, "bound_ms": None,
-                   "bound_by": "latency"})
-    log(f"{card} | [kernels] poseidon2_leaf (1, {CLAIMS_ROW}): kernel "
-        f"{ms:.3f} ms for {-(-CLAIMS_ROW // 16)} permutations on one "
-        f"thread (plain version not run: one permutation after another)")
-    del row
-    main = shapes[len(LEAF_SHAPES) - 1]
+    worst, shapes, kept = leaf_shapes(dev, card, P, gen, LEAF_SHAPES,
+                                      keep={(1, 65536)})
+    sworst, sshapes = 0, []
+    for rows_n, cols, reps, plain_reps in SPONGE_SHAPES:
+        if plain_reps:
+            rows = torch.randint(0, P, (rows_n, cols), dtype=torch.int32,
+                                 device=dev, generator=gen)
+            P2.hash_rows(rows)
+            want, plain_ms = cuda_ms(lambda: P2.hash_rows(rows), plain_reps)
+        else:
+            rows, want, plain_ms = kept[(rows_n, cols)]
+        P2.sponge_hash(rows)
+        got, ms = cuda_ms(lambda: P2.sponge_hash(rows), reps)
+        err = int((got.long() - want.long()).abs().max())
+        if got.shape != (rows_n, 8) or not torch.equal(got, want):
+            raise SystemExit(f"poseidon2_sponge disagrees with hash_rows at "
+                             f"{(rows_n, cols)}: max_abs_err {err}")
+        sworst = max(sworst, err)
+        bound, by = leaf_bound_ms(rows_n, cols)
+        sshapes.append({"rows": rows_n, "cols": cols, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by})
+        log(f"{card} | [kernels] poseidon2_sponge ({rows_n}, {cols}): equal, "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+            + (" (the leaf check's)" if not plain_reps else "")
+            + f", bound {bound:.6f} ms by {by}")
+    # the one-row shapes in turns; the claims row's digest is held by
+    # the accel phase on the block's real row
+    claims = torch.randint(0, P, (1, CLAIMS_ROW), dtype=torch.int32,
+                           device=dev, generator=gen)
+    for rows, reps in ((kept[(1, 65536)][0], (1, 3)), (claims, (1, 1))):
+        cols = rows.shape[1]
+        t = turns(card, f"(1, {cols})",
+                  {"poseidon2_leaf": lambda: P2.leaf_hash(rows),
+                   "poseidon2_sponge": lambda: P2.sponge_hash(rows)},
+                  dict(zip(("poseidon2_leaf", "poseidon2_sponge"), reps)))
+        if not torch.equal(t["poseidon2_leaf"][0], t["poseidon2_sponge"][0]):
+            raise SystemExit(f"poseidon2_sponge disagrees with poseidon2_leaf "
+                             f"at (1, {cols})")
+        mhz = max(t["mhz"])
+        bound, by = leaf_bound_ms(1, cols)
+        chain = chain_bound_ms(cols, mhz)
+        leaf_ms = sum(t["poseidon2_leaf"][1]) / 2
+        ms = sum(t["poseidon2_sponge"][1]) / 2
+        row = {"rows": 1, "cols": cols, "bound_ms": bound, "bound_by": by,
+               "chain_bound_ms": chain, "sm_mhz": t["mhz"]}
+        if cols == CLAIMS_ROW:
+            shapes.append({**row, "ms": leaf_ms, "plain_ms": None})
+            sshapes.append({**row, "ms": ms, "plain_ms": None})
+        else:
+            sshapes[-1].update(row, ms=ms)
+            next(x for x in shapes if (x["rows"], x["cols"]) == (1, cols)) \
+                .update(row, turns_ms=leaf_ms)
+        log(f"{card} | [kernels] (1, {cols}) in turns: poseidon2_sponge "
+            f"{ms:.3f} ms against poseidon2_leaf {leaf_ms:.3f} ms "
+            f"({ms / leaf_ms:.3f} of it), equal; "
+            f"{ms / max(1, -(-cols // 16)) * 1e3:.3f} us a permutation; "
+            f"bounds: chain {chain:.3f} ms ({PERM_CHAIN} dependent "
+            f"instructions a permutation x {DEP_CYCLES} cycles at "
+            f"{mhz} MHz), roofline {bound:.6f} ms by {by}")
+    del claims, kept
+    torch.cuda.empty_cache()
     # no single PyTorch call computes a Poseidon2 sponge
-    return {"max_abs_err": worst, "ms": main["ms"],
+    main = shapes[len(LEAF_SHAPES) - 1]
+    head = sshapes[len(SPONGE_SHAPES) - 1]
+    return {
+        "poseidon2_leaf": {
+            "max_abs_err": worst, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
-            "shapes": shapes}
+            "shapes": shapes},
+        "poseidon2_sponge": {
+            "max_abs_err": sworst, "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "chain_bound_ms": head["chain_bound_ms"], "library_ms": None,
+            "shapes": sshapes},
+    }
 
 
 def fs_bound_ms(n: int, cols: int) -> tuple:
@@ -605,9 +746,10 @@ def check_aux(dev, card, seg, ia, iw, oracle) -> np.ndarray:
     return main
 
 
-def require_launches(launches: dict, path: str) -> None:
-    for name, n in launches.items():
-        if n == 0:
+def require_launches(launches: dict, path: str, names=None) -> None:
+    """Fail unless every kernel of `names` (default: all) was launched."""
+    for name in names or launches:
+        if launches[name] == 0:
             raise SystemExit(f"kernel {name} was not launched by the "
                              f"{path} path")
 
@@ -689,10 +831,28 @@ def fixture_batches(fx) -> dict:
     }
 
 
+def check_claims_row(dev, card, limbs, digest) -> None:
+    """The block's real bigint claims row through the one-thread leaf
+    kernel must hash to `digest`, the sponge kernel's (``sponge_row``).
+    This launch compares the kernels and counts on no path."""
+    from zeth_tpu_torch import hostmath as H
+    from zeth_tpu_torch.hash import poseidon2 as P2
+    row = H.to_monty_np(np.asarray(limbs, np.uint64)[None])
+    t = torch.from_numpy(row.view(np.int32)).to(dev)
+    leaf, ms = cuda_ms(lambda: P2.leaf_hash(t), 1)
+    got = H.from_monty_np(leaf.cpu().numpy().view(np.uint32))[0]
+    if not np.array_equal(got, digest):
+        raise SystemExit("the block's bigint claims row: poseidon2_leaf and "
+                         "poseidon2_sponge (sponge_row) disagree")
+    log(f"{card} | [accel] the block's bigint claims row ({t.shape[1]} "
+        f"limbs): poseidon2_leaf {ms:.3f} ms, the same digest as "
+        "sponge_row's (poseidon2_sponge)")
+
+
 def accel_phase(dev, card, ex, seg0_seal, fx) -> tuple:
     """The block's accelerator batches proved and verified on the card,
-    and linked to segment 0's bound IO. Returns the leaf launches of the
-    three proves, and the batches' seals by kind."""
+    and linked to segment 0's bound IO. Returns each kernel's launches in
+    the three proves, and the batches' seals by kind."""
     from zeth_tpu_torch import kernels, zkvm
     from zeth_tpu_torch.circuits import rv32im
     from zeth_tpu_torch.zkp import proof as proof_mod
@@ -739,6 +899,8 @@ def accel_phase(dev, card, ex, seg0_seal, fx) -> tuple:
         if not np.array_equal(want, digest):
             raise SystemExit(f"{kind}: prove_batch's claims digest differs "
                              "from the digest of the verified IO")
+        if kind == "bigint":
+            check_claims_row(dev, card, mod.claims_limbs(io), want)
         words[kind] = zkvm.accelerator_words(kind, io)
         log(f"{card} | [accel] {kind}: verify_batch {verify_s:.3f} s, "
             f"claims digest of the verified IO {digest_s:.3f} s, equal to "
@@ -843,7 +1005,7 @@ def recursion_proof(dev, card, kind, what, prove) -> tuple:
     it resets). Returns (RecReceipt, that row)."""
     from zeth_tpu_torch import kernels
     from zeth_tpu_torch.zkp import prover
-    before = kernels.LAUNCHES["poseidon2_leaf"]
+    before = dict(kernels.LAUNCHES)
     prover.TIMING = True
     prover.STAGE_LOG.clear()
     torch.cuda.synchronize()
@@ -864,7 +1026,10 @@ def recursion_proof(dev, card, kind, what, prove) -> tuple:
            "control_s": stages["control trace (host)"],
            "aux_s": stages["aux witgen (host)"],
            "prove_s": stages["recursion prove"], "total_s": total,
-           "launches": kernels.LAUNCHES["poseidon2_leaf"] - before,
+           "launches": kernels.LAUNCHES["poseidon2_leaf"]
+           - before["poseidon2_leaf"],
+           "sponge_launches": kernels.LAUNCHES["poseidon2_sponge"]
+           - before["poseidon2_sponge"],
            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
            "prior_peak_gib": prior / 2**30}
     log(f"{card} | [succinct] {kind} {what}: {row['rows']} program rows, "
@@ -872,7 +1037,8 @@ def recursion_proof(dev, card, kind, what, prove) -> tuple:
         f"interpreter {row['witgen_s']:.3f} s, control trace "
         f"{row['control_s']:.3f} s, build_aux {row['aux_s']:.3f} s, prove "
         f"{row['prove_s']:.3f} s (the last three inside it), all "
-        f"{total:.3f} s; {row['launches']} leaf launches, peak device "
+        f"{total:.3f} s; {row['launches']} leaf and "
+        f"{row['sponge_launches']} sponge launches, peak device "
         f"memory {row['peak_gib']:.2f} GiB")
     return rec, row
 
@@ -1381,7 +1547,7 @@ def mesh_phase(dev, card, fx, spin, spin_seals) -> dict:
             for name in launches:
                 launches[name] += r["counts"][name]
         require_launches({n: sum(r["counts"][n] for r in ranks)
-                          for n in launches}, f"mesh ({tag})")
+                          for n in launches}, f"mesh ({tag})", LEAF_ONLY)
         log(f"{card} | [mesh] ({tag}) spin({iters}) po2="
             f"{rv32im.choose_po2(seg, len(ia)) if tag == 'b' else fx['po2']} "
             f"over D={d} ranks on one card: every rank's seals equal, "
@@ -1458,7 +1624,7 @@ def run_phases(dev, card, t_start: float, tmp: str, oracle,
 
     # 3. kernels against their plain versions, then the int8 field
     # products against the radix-2 and the coset recompute
-    results = {"poseidon2_leaf": check_leaf_kernel(dev, card, P)}
+    results = check_poseidon2_kernels(dev, card, P)
     gen = torch.Generator(device=dev)
     gen.manual_seed(18)
     check_four_step(dev, card, P, gen, FS_SHAPES)
@@ -1505,7 +1671,7 @@ def run_phases(dev, card, t_start: float, tmp: str, oracle,
     prove_s = time.time() - t0
     spin_peak = torch.cuda.max_memory_allocated(dev)
     spin_launches = dict(kernels.LAUNCHES)
-    require_launches(spin_launches, "spin")
+    require_launches(spin_launches, "spin", LEAF_ONLY)
     t0 = time.time()
     rv32im.verify_segments([seal], [pg_seal], claim, ia, iw, entry,
                            device=dev)
@@ -1541,7 +1707,7 @@ def run_phases(dev, card, t_start: float, tmp: str, oracle,
     with path_counters(dev) as got:
         seals, pg_seals = rv32im.prove_segments([seg], ia, iw, device=dev)
     prove_s, peak, launches = got["s"], got["peak_gib"], got["counts"]
-    require_launches(launches, "EVM")
+    require_launches(launches, "EVM", LEAF_ONLY)
     staged = staged_prove(
         card, "evm-stage",
         lambda: rv32im.prove_segments([seg], ia, iw, device=dev))
@@ -1586,8 +1752,10 @@ def run_phases(dev, card, t_start: float, tmp: str, oracle,
     streamed_runs["sha lift"] = streamed_sha_lift(
         dev, card, sha_lift_seal, accel_seals["sha"])
     del accel_seals
+    # phase 4's spin segment hashes no digest; the sha lift's claim does
     for what, counts in streamed_runs.items():
-        require_launches(counts, f"streamed {what}")
+        require_launches(counts, f"streamed {what}",
+                         LEAF_ONLY if what == "spin" else None)
     streamed_launches = {name: sum(c[name] for c in streamed_runs.values())
                          for name in kernels.NAMES}
     log(f"{card} | [streamed] launches of the streamed runs "
@@ -1603,17 +1771,19 @@ def run_phases(dev, card, t_start: float, tmp: str, oracle,
 
     # 14. results
     log(f"[done] {time.time() - t_start:.1f} s")
+    by_path = {name: {"spin": spin_launches[name], "evm": launches[name],
+                      "accel": accel_launches[name],
+                      "receipt": receipt_launches[name],
+                      "succinct": succinct_launches[name],
+                      "cli": cli_launches[name],
+                      "streamed": streamed_launches[name],
+                      "mesh": mesh_launches[name]}
+               for name in kernels.NAMES}
     print(json.dumps({"kernels": [
-        dict(name=name, **KERNELS[name], launches=launches[name],
-             launches_by_path={"spin": spin_launches[name],
-                               "evm": launches[name],
-                               "accel": accel_launches[name],
-                               "receipt": receipt_launches[name],
-                               "succinct": succinct_launches[name],
-                               "cli": cli_launches[name],
-                               "streamed": streamed_launches[name],
-                               "mesh": mesh_launches[name]},
-             **results[name]) for name in kernels.NAMES]}))
+        dict(name=name, **KERNELS[name],
+             launches=by_path[name][KERNELS[name]["main_path"]],
+             launches_by_path=by_path[name], **results[name])
+        for name in kernels.NAMES]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -183,6 +183,7 @@ def _default_device_calls():
     from zeth_tpu_torch.circuits import bigint2, keccak, rv32im, sha256
     from zeth_tpu_torch.circuits.toy import SquareChainAir
     from zeth_tpu_torch.executor import Executor, guests, load_image
+    from zeth_tpu_torch.hash import poseidon2
     from zeth_tpu_torch.recursion import compiler, succinct
     from zeth_tpu_torch.zkp import prover, verifier
     from zeth_tpu_torch.zkp.transcript import Transcript
@@ -234,6 +235,7 @@ def _default_device_calls():
             succinct.verify_root_segments(None, None, [], [], [], None, [],
                                           [], []),
         "compiler.claim_digest": lambda: compiler.claim_digest(9, [1, 2]),
+        "poseidon2.sponge_row": lambda: poseidon2.sponge_row([1, 2, 3]),
         "compiler.expected_control_root": lambda:
             compiler.expected_control_root(SquareChainAir(), 5),
         "Receipt.verify": lambda: receipt().verify(np.zeros(8, np.uint64)),
@@ -274,6 +276,7 @@ def _empty_seal():
                                    "succinct.aggregate_segments",
                                    "succinct.verify_root_segments",
                                    "compiler.claim_digest",
+                                   "poseidon2.sponge_row",
                                    "compiler.expected_control_root",
                                    "Receipt.verify", "keccak.verify_batch",
                                    "bigint2.verify_batch",

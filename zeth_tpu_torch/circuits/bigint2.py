@@ -340,12 +340,18 @@ def parse_publics(pubs, flat_limbs: bool = False):
     return out
 
 
+def claims_limbs(io: list[tuple]) -> np.ndarray:
+    """The proof-bound (a, b, m, r) stream as 16-bit limbs: the one row
+    ``claims_digest`` hashes."""
+    raw = b"".join(int(v).to_bytes(2 * LIMBS, "little")
+                   for op in io for v in op)
+    return np.frombuffer(raw, dtype="<u2")
+
+
 def claims_digest(io: list[tuple], device=None) -> np.ndarray:
     """Poseidon2 digest over the proof-bound (a, b, m, r) limb stream,
     hashed on `device` (None: the CUDA card)."""
-    raw = b"".join(int(v).to_bytes(2 * LIMBS, "little")
-                   for op in io for v in op)
-    return P2.sponge_row(np.frombuffer(raw, dtype="<u2"), device)
+    return P2.sponge_row(claims_limbs(io), device)
 
 
 def choose_po2(nop: int) -> int:

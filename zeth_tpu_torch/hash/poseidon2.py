@@ -8,10 +8,12 @@ Counterpart of ``zeth_tpu.hash.poseidon2``. Two halves:
   ``hash_pairs_np``. The transcript, the verifier and the paging AIR use
   these.
 * Device functions on torch int32 Montgomery tensors: ``permute``,
-  ``hash_rows`` (the plain leaf sponge), ``hash_pairs``, and
-  ``leaf_hash``, which sends a CUDA matrix to the hand-written leaf
-  kernel (``kernels/csrc/poseidon2_leaf.cu``) and a CPU matrix to
-  ``hash_rows``; ``sponge_row`` hashes one long host row through it.
+  ``hash_rows`` (the plain leaf sponge), ``hash_pairs``, and the two
+  kernels' wrappers, which send a CUDA matrix to a hand-written kernel
+  and a CPU matrix to ``hash_rows``: ``leaf_hash`` (the Merkle leaves,
+  ``kernels/csrc/poseidon2_leaf.cu``, one thread per row) and
+  ``sponge_hash`` (``kernels/csrc/poseidon2_sponge.cu``, one warp per
+  row), through which ``sponge_row`` hashes one long host row.
 
 The torch permutation takes and returns Montgomery tensors like the
 reference, but runs its rounds on standard-form int64 values: the round
@@ -287,7 +289,8 @@ def hash_rows(rows):
 
     Rate 16, add-into-rate absorb, ragged last chunk zero-padded (the
     host's partial absorb), digest = first 8 cells. This is the plain
-    version of the CUDA leaf kernel; ``leaf_hash`` picks between them.
+    version of both CUDA kernels; ``leaf_hash`` and ``sponge_hash`` pick
+    between it and theirs.
     """
     n, k = rows.shape
     state = torch.zeros((CELLS, n), dtype=torch.int64, device=rows.device)
@@ -311,28 +314,35 @@ def hash_pairs(left, right):
 
 
 # ---------------------------------------------------------------------------
-# The leaf kernel's wrapper
+# The kernels' wrappers
 # ---------------------------------------------------------------------------
 
 
-def _leaf_lib():
-    lib = kernels.load("poseidon2_leaf")
+def _kernel_lib(name: str):
+    """A Poseidon2 kernel's library, its round constants uploaded. Both
+    kernels have one C interface: ``<name>_set_constants(rc_ext, rc_int,
+    diag_m1)`` and ``<name>(in, out, rows, cols, stream)``."""
+    lib = kernels.load(name)
     if not getattr(lib, "_zeth_ready", False):
-        lib.poseidon2_leaf_set_constants.restype = ctypes.c_int
-        lib.poseidon2_leaf_set_constants.argtypes = [ctypes.c_void_p] * 3
-        lib.poseidon2_leaf.restype = ctypes.c_int
-        lib.poseidon2_leaf.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                       ctypes.c_int64, ctypes.c_int64,
-                                       ctypes.c_void_p]
+        setc, launch = getattr(lib, f"{name}_set_constants"), getattr(lib, name)
+        setc.restype = ctypes.c_int
+        setc.argtypes = [ctypes.c_void_p] * 3
+        launch.restype = ctypes.c_int
+        launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                           ctypes.c_int64, ctypes.c_void_p]
         mc = _monty_constants()
         tabs = [np.ascontiguousarray(mc[k], np.uint32).reshape(-1)
                 for k in ("rc_ext", "rc_int", "diag_m1")]
-        err = lib.poseidon2_leaf_set_constants(*(t.ctypes.data for t in tabs))
+        err = setc(*(t.ctypes.data for t in tabs))
         if err:
-            raise RuntimeError(f"poseidon2_leaf constants upload failed: "
+            raise RuntimeError(f"{name} constants upload failed: "
                                f"CUDA error {err}")
         lib._zeth_ready = True
     return lib
+
+
+def _leaf_lib():
+    return _kernel_lib("poseidon2_leaf")
 
 
 def leaf_hash(rows):
@@ -364,13 +374,48 @@ def leaf_hash(rows):
     return out
 
 
+def sponge_hash(rows):
+    """Sponge digests of an (R, C) int32 Montgomery matrix -> (R, 8), the
+    same as ``leaf_hash``'s, for one long row.
+
+    A CUDA tensor goes to the hand-written sponge kernel (one warp per
+    row: the lanes share each permutation, for a row whose permutations
+    run one after another); a CPU tensor to the plain ``hash_rows``.
+    Anything else (another device or dtype, not 2-D, not contiguous,
+    empty) raises.
+    """
+    if rows.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"sponge_hash: unsupported device {rows.device}")
+    if rows.dtype != torch.int32 or rows.dim() != 2:
+        raise ValueError("sponge_hash: expects a 2-D int32 tensor, got "
+                         f"{rows.dim()}-D {rows.dtype}")
+    if not rows.is_contiguous():
+        raise ValueError("sponge_hash: expects a contiguous (row-major) "
+                         "matrix")
+    r, c = rows.shape
+    if r < 1 or c < 1:
+        raise ValueError(f"sponge_hash: empty matrix {tuple(rows.shape)}")
+    if rows.device.type == "cpu":
+        return hash_rows(rows)
+    lib = _kernel_lib("poseidon2_sponge")
+    out = torch.empty((r, DIGEST_LEN), dtype=torch.int32, device=rows.device)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        err = lib.poseidon2_sponge(rows.data_ptr(), out.data_ptr(), r, c,
+                                   stream)
+    if err:
+        raise RuntimeError(f"poseidon2_sponge launch failed: CUDA error {err}")
+    kernels.LAUNCHES["poseidon2_sponge"] += 1
+    return out
+
+
 def sponge_row(values, device=None) -> np.ndarray:
     """Sponge digest of one row of standard-form field elements, equal to
-    ``hash_rows_np(values[None])[0]``, computed by ``leaf_hash`` on
-    `device` (None: the CUDA card): the leaf kernel on a card (one
-    thread, one permutation after another), ``hash_rows`` on the CPU.
+    ``hash_rows_np(values[None])[0]``, computed by ``sponge_hash`` on
+    `device` (None: the CUDA card): the sponge kernel on a card (one
+    warp, one permutation after another), ``hash_rows`` on the CPU.
     Returns the (8,) standard-form digest."""
     row = H.to_monty_np(np.asarray(values, np.uint64).reshape(1, -1) % H.PU)
     t = torch.from_numpy(row.view(np.int32)).to(resolve_device(device))
-    out = leaf_hash(t).cpu().numpy().view(np.uint32)
+    out = sponge_hash(t).cpu().numpy().view(np.uint32)
     return H.from_monty_np(out)[0]

@@ -9,10 +9,17 @@ module is imported, so CPU-only machines import the package freely.
 ``LAUNCHES`` counts, per kernel, the launches its wrapper has made; a
 wrapper adds one where it launches its kernel and nowhere else.
 
-Kernels:
+Kernels (two; on the CPU each wrapper runs its plain version,
+``hash_rows``, which the CPU tests hold equal to the JAX package's; on
+the card ``chip_smoke.py`` phase 3 holds each kernel equal to it):
 
-* ``poseidon2_leaf`` -- the Poseidon2 Merkle leaf sponge; wrapper
-  ``zeth_tpu_torch.hash.poseidon2.leaf_hash``.
+* ``poseidon2_leaf`` -- the Poseidon2 Merkle leaf sponge, one thread per
+  row; wrapper ``zeth_tpu_torch.hash.poseidon2.leaf_hash``, behind every
+  Merkle tree.
+* ``poseidon2_sponge`` -- the same sponge, one warp per row, for one long
+  row (the claims and publics digests); wrapper
+  ``zeth_tpu_torch.hash.poseidon2.sponge_hash``, which only
+  ``sponge_row`` calls.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD = os.path.join(os.path.dirname(_DIR), "build")
 
-NAMES = ("poseidon2_leaf",)
+NAMES = ("poseidon2_leaf", "poseidon2_sponge")
 LAUNCHES: dict[str, int] = {name: 0 for name in NAMES}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
