@@ -18,13 +18,16 @@ receipts. Phases, each of which exits non-zero on failure:
 3. kernels: each kernel against its plain PyTorch version on the card,
    bit for bit, at the main path's shapes, with both times and the
    least time the card could take for the same work: the leaf kernel
-   (one thread a row, the Merkle leaves) at LEAF_SHAPES, the sponge
-   kernel (one warp a row, the claims and publics digests) at
-   SPONGE_SHAPES; then both in turns (leaf, sponge, sponge, leaf) on one
-   long row of 65,536 and on a random bigint claims row (2,479,200
-   limbs), equal, with the roofline and the chain bound of a row (its
-   permutations times one permutation's critical path) at the SM clock
-   read beside them. Then the exact int8 field products
+   (the Merkle leaves) at LEAF_SHAPES and at the rows on either side of
+   each switch of its rule, with the mapping the rule takes and with
+   each of its mappings forced (1, 8 and 32 lanes a row), all timed; the
+   sponge kernel (one warp a row, the claims and publics digests) at
+   SPONGE_SHAPES; then the sponge kernel in turns with the leaf kernel's
+   8-lane mapping (another body of code: the rule gives one row the
+   sponge kernel's own warp kernel) on one long row of 65,536 and on a
+   random bigint claims row (2,479,200 limbs), equal, with the roofline
+   and the chain bound of a row (its permutations times one
+   permutation's critical path) at the SM clock read beside them. Then the exact int8 field products
    (``zeth_tpu_torch.mxu``, ``torch._int_mm`` on the tensor cores): the
    four-step coset LDE (``mxu.coset_lde_fs``, which no path takes)
    against the radix-2 ``prover._lde`` that every path takes, at each
@@ -38,50 +41,52 @@ receipts. Phases, each of which exits non-zero on failure:
    the resident path and once with the rv32im main group coset-streamed
    (``prover.STREAM_MAIN_BYTES`` set to 0 in this process, then restored;
    the aux group built on the card);
-5. spin: a po2=18 spin segment and its paging proof, untimed inside (as
-   a user runs it), the kernels' launch counts read around this run
-   alone, verified by ``verify_segments`` against a ``ReceiptClaim`` as
-   bench.py verifies it; then proved again with the prover's stage
-   timers on, for the breakdown only (same seals);
+5. spin: a po2=16 spin segment and its paging proof, proved once with
+   the prover's stage timers on (the breakdown), the kernels' launch
+   counts read around this run alone, verified by ``verify_segments``
+   against a ``ReceiptClaim`` as bench.py verifies it;
 6. EVM front end: the guest ELF compiled from the checkout's C sources,
    the fixture block encoded, the guest executed with its trace;
 7. aux: ``build_aux_device`` on the card against the host ``build_aux``
    on the EVM segment's main trace at po2=20, word for word (the host
    oracle is computed in a process of its own from phase 3 on);
-8. EVM: ``prove_segments`` of that segment at po2=20, once untimed (launch
-   counts and peak memory read around it) and once with the stage
-   timers, same seals; then the segment's main trace uploaded
+8. EVM: ``prove_segments`` of that segment at po2=20, once, with the
+   stage timers on (launch counts, the leaf kernel's by (rows, cols), and
+   peak memory read around it; then the leaf kernel timed once at each
+   of those shapes, whose launches x ms is its time in the segment);
+   then the segment's main trace uploaded
    bit-packed (``prover._upload_main``: the C packer, the unpack on the
    card) and plain (``prover._upload_std``), timed, word for word equal;
    both proofs verified as bench.py verifies them;
 9. accel: the block's keccak, bigint and sha batches (every accelerator
    call of the execution, built as ``zkvm.LocalProver`` builds them),
-   each proved on the card untimed (launches, peak memory) and once with
-   the stage timers (same seal), verified, its claims digest held equal
+   each proved on the card once with the stage timers on (launches, peak
+   memory read around it), verified, its claims digest held equal
    to the digest of the verified IO (and the block's bigint claims row
-   through the leaf kernel equal to the sponge kernel's digest of it,
-   ``sponge_row``'s); segment 0's bound IO must be a
+   through the leaf kernel's 8-lane mapping equal to the sponge kernel's
+   digest of it, ``sponge_row``'s); segment 0's bound IO must be a
    prefix of the proof-bound streams (the resolve); a flipped keccak
    seal word is rejected; small batches must hash to the fixture digests;
 10. receipt: ``zkvm.LocalProver`` and ``Receipt.verify`` on four guests
    (echo, keccak, bigint, sha), each with one tamper that must be
    rejected;
 11. succinct: (a) EVM segment 0's proof and its paging proof lifted into
-   the recursion circuit and joined, the block's keccak and sha batches
-   lifted, all folded to one root proof by
-   ``succinct.aggregate_segments`` and verified by
-   ``verify_root_segments``, with a flipped root-seal word and a forged
-   d0 binding rejected; one line per recursion proof with its host and
-   prove seconds, leaf launches and peak memory; (b) ``zkvm.LocalProver``
-   under ``ZETH_SUCCINCT=1`` on a two-segment spin guest and on a
-   bigint guest, each receipt verified and tampered (a forged d0 binding,
-   a forged paging public, a flipped root-seal word, a flipped
-   accelerator public); the launch counts are read around (a) and (b);
-   (c) after that read, the sha batch's lift of (a) proved again with
-   its main group coset-streamed (the recursion AIR's host aux, the
-   program compiled already), whose seal must equal the resident one
-   word for word. The streamed path's launches are those of (c) and of
-   phase 4's streamed prove, each counted around its own run;
+   the recursion circuit and joined to one root proof by
+   ``succinct.aggregate_segments`` (the block's batches are not lifted:
+   cut for time) and verified by ``verify_root_segments``, with a
+   flipped root-seal word and a forged d0 binding rejected; one line per
+   recursion proof with its host and prove seconds, leaf launches and
+   peak memory; (b) ``zkvm.LocalProver`` under ``ZETH_SUCCINCT=1`` on a
+   bigint guest (its segment pair and its bigint batch lifted and
+   folded, one line per recursion proof), the receipt verified and
+   tampered (a forged d0 binding, a forged paging public, a flipped
+   root-seal word, a flipped accelerator public); the launch counts are
+   read around (a) and (b); (c) after that read, the paging proof's lift
+   of (a) proved again with its main group coset-streamed (the recursion
+   AIR's host aux, the program compiled already), whose seal must equal
+   the resident one word for word. The streamed path's launches are
+   those of (c) and of phase 4's streamed prove, each counted around its
+   own run;
 12. cli: the port's command line as a user runs it. (a) ``cli
    validate`` of the smaller fixture block on the host's native EVM
    engine (run in a process of its own from phase 3 on, as it needs no
@@ -98,7 +103,7 @@ receipts. Phases, each of which exits non-zero on failure:
    rank's shards on the card). (a) MESH_FIXTURE_RANKS ranks prove phase
    4's fixture spin segment with ``prove_segments(mesh=...)``, whose
    seals must hash to the fixture digests; (b) MESH_SPIN_RANKS ranks
-   prove phase 5's po2=18 spin segment, whose seals must equal phase 5's
+   prove phase 5's po2=16 spin segment, whose seals must equal phase 5's
    word for word and verify; every rank's seals must equal every other
    rank's. Per rank: the prove seconds, leaf launches (the ``mesh``
    path's, summed over ranks), peak device memory, the collectives'
@@ -108,15 +113,19 @@ receipts. Phases, each of which exits non-zero on failure:
 14. a ``{"kernels": [...]}`` line, the card line, and the final
    ``{"ok": true, ...}`` line.
 
+Each phase prints its seconds (``[phase N]``), on standard error too.
+
 The script needs a CUDA card: without one it exits non-zero before any
 result. It imports no jax and nothing of the JAX package (``zeth_tpu``).
-It must finish within 1200 s, the kernels' build included (about
-760-1,150 s on an H100 80GB HBM3 at 700 W, the host's speed setting
-most of the spread; the two host-only jobs above run beside the card's
-phases to keep it inside): where that needs a cut, the
-depth of an earlier path is cut first (the staged spin prove runs at
-po2=18, not po2=20), never a check. Every AIR with a ``main_bit_mask``
-is uploaded bit-packed on every path.
+It must finish within 1200 s, the kernels' build included, on hosts
+whose speed spreads its time by up to 1.7x (one H100 80GB HBM3 at 700 W
+took 949 s for this script before the cuts below, and a slower host
+more than 1200 s), so it aims at about half of that: the two host-only
+jobs above run beside the card's phases, each path is proved once (the
+stage timers on), and the depth of a path is cut before a check is
+dropped (the spin path at po2=16; in 11a no batch lifted; in 11b one
+receipt of one segment). Every AIR with a ``main_bit_mask`` is uploaded
+bit-packed on every path.
 """
 
 from __future__ import annotations
@@ -130,6 +139,7 @@ import multiprocessing
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -140,15 +150,21 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_seals.json")
 
 # the EVM segment's size (the reference's, and bench.py's BASELINE) and
-# the spin path's, cut in depth to keep the host verifier's time down
+# the spin path's, cut in depth to keep the script inside its time limit
 PO2 = 20
-SPIN_PO2 = 18
+SPIN_PO2 = 16
 
 # NVIDIA's data sheet for the H100 SXM: HBM bytes/s, and float32 outside
-# the tensor cores. int32 instructions issue on half of the float32 lanes
-# and an FMA counts as two operations: 67e12 / 2 / 2 per second.
+# the tensor cores, 67e12 operations/s (an FMA counts as two): 132 SMs x 4
+# schedulers x 32 lanes x 1.98 GHz instructions. A scheduler issues one
+# warp instruction a cycle, so no mix of instructions runs faster than
+# PEAK_ISSUE. Integer instructions go to two pipes of 16 lanes a
+# scheduler each, PEAK_PIPE apiece: integer multiplies (IMAD, IMUL) to
+# the FMA pipe, selects, min/max and logic to the ALU pipe; an addition
+# issues on either (ptxas writes IADD3 or IMAD.IADD).
 PEAK_BYTES = 3.35e12
-PEAK_INT32 = 67e12 / 2 / 2
+PEAK_ISSUE = 67e12 / 2
+PEAK_PIPE = 67e12 / 4
 # dense int8 tensor-core operations per second (an FMA counts as two)
 PEAK_INT8 = 1979e12
 
@@ -167,6 +183,11 @@ LEAF_SHAPES = [(1, 3, 20, 3), (7, 16, 20, 3), (1000, 37, 20, 3),
                (4096, 1009, 20, 3), (1 << 14, 4161, 5, 1),
                (1 << 17, 3410, 3, 1), (1, 65536, 3, 1),
                (1 << 21, 84, 5, 1), (1 << 22, 1009, 3, 1)]
+# the leaf kernel's mappings, in lanes a row, each held against hash_rows
+# and timed at every shape beside the one its rule takes; the shapes on
+# either side of the rule's switches are added at the rv32im main width
+LEAF_MAPPINGS = (1, 8, 32)
+SWITCH_COLS = 1009
 # the bigint batch's claims row: 25,825 ops x 96 limbs
 CLAIMS_ROW = 25825 * 96
 # the Poseidon2 sponge kernel's (rows, cols, kernel calls, plain calls)
@@ -175,9 +196,9 @@ CLAIMS_ROW = 25825 * 96
 SPONGE_SHAPES = [(1, 3, 20, 3), (1, 16, 20, 3), (1, 17, 20, 3),
                  (7, 16, 20, 3), (1000, 37, 20, 3), (1, 65536, 3, 0)]
 # the sponge kernel's critical path of one permutation, in dependent
-# instructions of poseidon2_sponge.cu as ptxas compiles them for sm_90a: a
-# Montgomery product 5 (IMAD.WIDE.U32, IMAD, IMAD.HI.U32, IMAD.X,
-# VIADDMNMX), a modular addition 2 (IADD3, VIADDMNMX), M4's 64-bit dot 3
+# instructions of the warp permutation (poseidon2.cuh) as ptxas compiles
+# it for sm_90a: a Montgomery product 5 (IMAD.WIDE.U32, IMAD, IMAD.HI.U32,
+# IMAD.X, VIADDMNMX), a modular addition 2 (IADD3, VIADDMNMX), M4's 64-bit dot 3
 # and its reduction 4, a shuffle, warp reduction or select 1; each
 # counted at DEP_CYCLES, the latency between dependent integer
 # instructions on Hopper (a shuffle or reduction waits longer, so the bound
@@ -194,7 +215,7 @@ DEP_CYCLES = 4
 
 # the (rows, columns) of the groups the reference prover gives its
 # four-step LDE (2^15 <= rows < 2^19, at most 256 columns) on these paths:
-# the po2=18 spin segment's control, aux and check groups, the po2=15
+# a po2=18 rv32im segment's control, aux and check groups, the po2=15
 # bigint batch's control, aux and check, the po2=16 paging proofs' (the
 # EVM segment's, block 101's), and the po2=18 recursion proofs' control,
 # main, aux and check groups; the port's prover takes the radix-2 there
@@ -206,7 +227,7 @@ FS_SHAPES = [(1 << 18, 8), (1 << 18, 108), (1 << 18, 16),
 # rows at the proof's query points _eval_rows_at_points evaluates
 EVAL_SHAPE = (1 << 24, 84)
 # phase 13's rank counts on the one card: (a) phase 4's fixture segment,
-# (b) phase 5's po2=18 spin segment
+# (b) phase 5's po2=16 spin segment
 MESH_FIXTURE_RANKS = 4
 MESH_SPIN_RANKS = 2
 
@@ -266,13 +287,21 @@ def leaf_bound_ms(rows: int, cols: int) -> tuple:
 
     Bytes: the matrix read once, the digests written once. Operations: one
     width-24 permutation per 16 absorbed columns; a permutation is 8 full
-    and 21 partial rounds, 8*24*4 + 21*(4+24) Montgomery products (three
-    integer multiplies and two add/select steps each) and 9*128 + 213 +
-    21*47 + 16 modular additions (an add and a conditional subtract)."""
+    and 21 partial rounds, 8*24*4 + 21*(4+24) Montgomery products and
+    9*128 + 213 + 21*47 + 16 modular additions. A product is three
+    integer multiplies (a b, m = t p' mod 2^32, m p), one addition and one
+    select (the conditional subtract); a modular addition one addition and
+    one select. The multiplies need the FMA pipe and the selects the ALU
+    pipe, PEAK_PIPE each; all of them issue at PEAK_ISSUE. The operations'
+    time is the longest of the three."""
     perms = rows * -(-cols // 16)
     products = 8 * 24 * 4 + 21 * (4 + 24)
     additions = 9 * 128 + (8 * 24 + 21) + 21 * 47 + 16
-    ops_ms = perms * (5 * products + 2 * additions) / PEAK_INT32 * 1e3
+    multiplies = 3 * products
+    selects = products + additions
+    total = multiplies + selects + products + additions
+    ops_ms = perms * max(multiplies / PEAK_PIPE, selects / PEAK_PIPE,
+                         total / PEAK_ISSUE) * 1e3
     bytes_ms = (rows * cols * 4 + rows * 8 * 4) / PEAK_BYTES * 1e3
     return max(ops_ms, bytes_ms), \
         "operations" if ops_ms >= bytes_ms else "bytes"
@@ -297,15 +326,16 @@ def chain_bound_ms(cols: int, mhz: int) -> float:
 def leaf_shapes(dev, card, P, gen, shapes, plain_rows=None,
                 keep=()) -> tuple:
     """The leaf kernel against hash_rows at each (rows, cols, kernel
-    calls, plain calls) of `shapes`, timed at each. The plain version
+    calls, plain calls) of `shapes`, timed at each: with the mapping its
+    rule takes, and with each of LEAF_MAPPINGS forced
+    (``_leaf_hash_lanes``), every one held equal. The plain version
     hashes the first `plain_rows` rows where that is fewer (the whole
     matrix's int64 state would not fit): then it is held equal there and
     its time is not the shape's. The bound is ``leaf_bound_ms``'s at
-    every shape; a one-row launch (one thread, one permutation after
-    another) is further bound by its chain (``chain_bound_ms``, given
-    where the sponge kernel checks the same row). Returns (max_abs_err,
-    one dict per shape, {(rows, cols): (matrix, plain digests)} for the
-    shapes in `keep`)."""
+    every shape; a one-row launch is further bound by its chain
+    (``chain_bound_ms``, given where the sponge kernel checks the same
+    row). Returns (max_abs_err, one dict per shape, {(rows, cols):
+    (matrix, plain digests)} for the shapes in `keep`)."""
     from zeth_tpu_torch.hash import poseidon2 as P2
     worst, out, kept = 0, [], {}
     for rows_n, cols, reps, plain_reps in shapes:
@@ -321,26 +351,79 @@ def leaf_shapes(dev, card, P, gen, shapes, plain_rows=None,
         torch.cuda.synchronize()
         got, ms = cuda_ms(lambda: P2.leaf_hash(rows), reps)
         want, plain_ms = cuda_ms(lambda: P2.hash_rows(part), plain_reps)
-        err = int((got[:part.shape[0]].long() - want.long()).abs().max())
-        if got.shape != (rows_n, 8) or not torch.equal(
-                got[:part.shape[0]], want):
-            raise SystemExit(f"poseidon2_leaf disagrees with hash_rows at "
-                             f"{(rows_n, cols)}: max_abs_err {err}")
-        worst = max(worst, err)
+        n = part.shape[0]
+        lanes_ms = {}
+        for lanes in (None, *LEAF_MAPPINGS):
+            if lanes is not None:
+                P2._leaf_hash_lanes(rows, lanes)
+                got, lanes_ms[lanes] = cuda_ms(
+                    lambda: P2._leaf_hash_lanes(rows, lanes), reps)
+            err = int((got[:n].long() - want.long()).abs().max())
+            if got.shape != (rows_n, 8) or not torch.equal(got[:n], want):
+                raise SystemExit(
+                    f"poseidon2_leaf ({lanes or 'the rule'}'s mapping) "
+                    f"disagrees with hash_rows at {(rows_n, cols)}: "
+                    f"max_abs_err {err}")
+            worst = max(worst, err)
         bound, by = leaf_bound_ms(rows_n, cols)
+        mapping = P2._leaf_mapping(rows_n, dev)
         out.append({"rows": rows_n, "cols": cols, "ms": ms,
                     "plain_ms": plain_ms if whole else None,
-                    "bound_ms": bound, "bound_by": by})
+                    "bound_ms": bound, "bound_by": by, "lanes": mapping,
+                    "lanes_ms": lanes_ms})
         log(f"{card} | [kernels] poseidon2_leaf ({rows_n}, {cols}): equal"
-            + ("" if whole else f" on the first {part.shape[0]} rows")
-            + f", kernel {ms:.3f} ms, plain "
+            + ("" if whole else f" on the first {n} rows")
+            + f", kernel {ms:.3f} ms ({mapping} lanes a row; "
+            + ", ".join(f"{k}: {v:.3f} ms" for k, v in lanes_ms.items())
+            + "), plain "
             + (f"{plain_ms:.3f} ms" if whole else "not measured")
-            + f", bound {bound:.6f} ms by {by}")
+            + f", bound {bound:.6f} ms by {by} ({bound / ms:.1%} of it)")
         if (rows_n, cols) in keep:
             kept[(rows_n, cols)] = (rows, want, plain_ms)
         del rows, part, got, want
         torch.cuda.empty_cache()
     return worst, out, kept
+
+
+def switch_shapes(dev) -> list:
+    """LEAF_SHAPES-style entries for the rows on either side of each
+    switch of the leaf kernel's rule on this card (found by asking the
+    rule, ``poseidon2_leaf_mapping``), at SWITCH_COLS columns."""
+    from zeth_tpu_torch.hash import poseidon2 as P2
+    shapes, lo = [], 1
+    hi = 1 << 26
+    while P2._leaf_mapping(lo, dev) != P2._leaf_mapping(hi, dev):
+        a, b = lo, hi                        # the first rows that change it
+        while b - a > 1:
+            mid = (a + b) // 2
+            if P2._leaf_mapping(mid, dev) == P2._leaf_mapping(lo, dev):
+                a = mid
+            else:
+                b = mid
+        shapes += [(a, SWITCH_COLS, 5, 1), (b, SWITCH_COLS, 5, 1)]
+        lo = b
+    return shapes
+
+
+def leaf_time_by_shape(dev, card, P, gen, tag: str, shapes: dict) -> float:
+    """The leaf kernel timed once at each (rows, cols) a path launched it
+    on (`shapes`: {(rows, cols): launches}); prints each and returns the
+    path's leaf time, the sum of launches x ms."""
+    from zeth_tpu_torch.hash import poseidon2 as P2
+    total = 0.0
+    for (rows_n, cols), n in sorted(shapes.items()):
+        rows = torch.randint(0, P, (rows_n, cols), dtype=torch.int32,
+                             device=dev, generator=gen)
+        P2.leaf_hash(rows)
+        _, ms = cuda_ms(lambda: P2.leaf_hash(rows), 1)
+        total += n * ms
+        log(f"{card} | [{tag}] leaf launches at ({rows_n}, {cols}): {n} x "
+            f"{ms:.3f} ms ({P2._leaf_mapping(rows_n, dev)} lanes a row)")
+        del rows
+    torch.cuda.empty_cache()
+    log(f"{card} | [{tag}] leaf kernel time of the path: {total:.3f} ms "
+        f"over {sum(shapes.values())} launches")
+    return total
 
 
 def turns(card, what: str, fns: dict, reps: dict) -> dict:
@@ -362,15 +445,20 @@ def turns(card, what: str, fns: dict, reps: dict) -> dict:
 def check_poseidon2_kernels(dev, card, P) -> dict:
     """The leaf kernel against hash_rows at every shape of LEAF_SHAPES;
     the sponge kernel against hash_rows at every shape of SPONGE_SHAPES
-    (at (1, 65536) against the leaf check's plain result); then both
-    kernels on the one-row shapes in turns (leaf, sponge, sponge, leaf),
-    at (1, 65536) and on a random bigint claims row, which must hash
-    alike. Returns the kernels' results by name."""
+    (at (1, 65536) against the leaf check's plain result); then on the
+    one-row shapes, (1, 65536) and a random bigint claims row, the sponge
+    kernel in turns with the leaf kernel's 8-lane mapping (leaf, sponge,
+    sponge, leaf), which must hash alike. The rule gives a single row the
+    sponge kernel's own warp kernel, so the 8-lane mapping is the leaf
+    kernel's witness there. Returns the kernels' results by name."""
     from zeth_tpu_torch.hash import poseidon2 as P2
     gen = torch.Generator(device=dev)
     gen.manual_seed(20)
     worst, shapes, kept = leaf_shapes(dev, card, P, gen, LEAF_SHAPES,
                                       keep={(1, 65536)})
+    switch_worst, switch, _ = leaf_shapes(dev, card, P, gen,
+                                          switch_shapes(dev), plain_rows=4096)
+    worst = max(worst, switch_worst)
     sworst, sshapes = 0, []
     for rows_n, cols, reps, plain_reps in SPONGE_SHAPES:
         if plain_reps:
@@ -399,15 +487,15 @@ def check_poseidon2_kernels(dev, card, P) -> dict:
     # the accel phase on the block's real row
     claims = torch.randint(0, P, (1, CLAIMS_ROW), dtype=torch.int32,
                            device=dev, generator=gen)
-    for rows, reps in ((kept[(1, 65536)][0], (1, 3)), (claims, (1, 1))):
+    for rows, reps in ((kept[(1, 65536)][0], (3, 3)), (claims, (1, 1))):
         cols = rows.shape[1]
         t = turns(card, f"(1, {cols})",
-                  {"poseidon2_leaf": lambda: P2.leaf_hash(rows),
+                  {"poseidon2_leaf": lambda: P2._leaf_hash_lanes(rows, 8),
                    "poseidon2_sponge": lambda: P2.sponge_hash(rows)},
                   dict(zip(("poseidon2_leaf", "poseidon2_sponge"), reps)))
         if not torch.equal(t["poseidon2_leaf"][0], t["poseidon2_sponge"][0]):
             raise SystemExit(f"poseidon2_sponge disagrees with poseidon2_leaf "
-                             f"at (1, {cols})")
+                             f"(8 lanes a row) at (1, {cols})")
         mhz = max(t["mhz"])
         bound, by = leaf_bound_ms(1, cols)
         chain = chain_bound_ms(cols, mhz)
@@ -416,14 +504,15 @@ def check_poseidon2_kernels(dev, card, P) -> dict:
         row = {"rows": 1, "cols": cols, "bound_ms": bound, "bound_by": by,
                "chain_bound_ms": chain, "sm_mhz": t["mhz"]}
         if cols == CLAIMS_ROW:
-            shapes.append({**row, "ms": leaf_ms, "plain_ms": None})
+            shapes.append({**row, "ms": leaf_ms, "plain_ms": None,
+                           "lanes": 8})
             sshapes.append({**row, "ms": ms, "plain_ms": None})
         else:
             sshapes[-1].update(row, ms=ms)
             next(x for x in shapes if (x["rows"], x["cols"]) == (1, cols)) \
-                .update(row, turns_ms=leaf_ms)
+                .update(row, turns_8_lanes_ms=leaf_ms)
         log(f"{card} | [kernels] (1, {cols}) in turns: poseidon2_sponge "
-            f"{ms:.3f} ms against poseidon2_leaf {leaf_ms:.3f} ms "
+            f"{ms:.3f} ms against poseidon2_leaf on 8 lanes {leaf_ms:.3f} ms "
             f"({ms / leaf_ms:.3f} of it), equal; "
             f"{ms / max(1, -(-cols // 16)) * 1e3:.3f} us a permutation; "
             f"bounds: chain {chain:.3f} ms ({PERM_CHAIN} dependent "
@@ -439,7 +528,7 @@ def check_poseidon2_kernels(dev, card, P) -> dict:
             "max_abs_err": worst, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
-            "shapes": shapes},
+            "shapes": shapes, "switch_shapes": switch},
         "poseidon2_sponge": {
             "max_abs_err": sworst, "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
@@ -801,8 +890,9 @@ def main_streamed(on: bool):
 def path_counters(dev):
     """The seconds (ending in a synchronise), leaf launches and peak
     device memory of what runs inside, in the dict it yields (and every
-    kernel's launches as "counts"); the launch counts are set to 0 just
-    before and read just after."""
+    kernel's launches as "counts", the leaf kernel's by (rows, cols) as
+    "shapes"); the launch counts are set to 0 just before and read just
+    after."""
     from zeth_tpu_torch import kernels
     got = {}
     torch.cuda.synchronize()
@@ -813,6 +903,7 @@ def path_counters(dev):
     torch.cuda.synchronize()
     got["s"] = time.time() - t0
     got["counts"] = dict(kernels.LAUNCHES)
+    got["shapes"] = dict(kernels.LAUNCH_SHAPES["poseidon2_leaf"])
     got["launches"] = got["counts"]["poseidon2_leaf"]
     got["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
 
@@ -832,27 +923,29 @@ def fixture_batches(fx) -> dict:
 
 
 def check_claims_row(dev, card, limbs, digest) -> None:
-    """The block's real bigint claims row through the one-thread leaf
-    kernel must hash to `digest`, the sponge kernel's (``sponge_row``).
-    This launch compares the kernels and counts on no path."""
+    """The block's real bigint claims row through the leaf kernel's
+    8-lane mapping (not the rule's: for one row that is the sponge
+    kernel's own warp kernel) must hash to `digest`, the sponge kernel's
+    (``sponge_row``). This launch compares the kernels and counts on no
+    path."""
     from zeth_tpu_torch import hostmath as H
     from zeth_tpu_torch.hash import poseidon2 as P2
     row = H.to_monty_np(np.asarray(limbs, np.uint64)[None])
     t = torch.from_numpy(row.view(np.int32)).to(dev)
-    leaf, ms = cuda_ms(lambda: P2.leaf_hash(t), 1)
+    leaf, ms = cuda_ms(lambda: P2._leaf_hash_lanes(t, 8), 1)
     got = H.from_monty_np(leaf.cpu().numpy().view(np.uint32))[0]
     if not np.array_equal(got, digest):
         raise SystemExit("the block's bigint claims row: poseidon2_leaf and "
                          "poseidon2_sponge (sponge_row) disagree")
     log(f"{card} | [accel] the block's bigint claims row ({t.shape[1]} "
-        f"limbs): poseidon2_leaf {ms:.3f} ms, the same digest as "
+        f"limbs): poseidon2_leaf on 8 lanes {ms:.3f} ms, the same digest as "
         "sponge_row's (poseidon2_sponge)")
 
 
-def accel_phase(dev, card, ex, seg0_seal, fx) -> tuple:
+def accel_phase(dev, card, ex, seg0_seal, fx) -> dict:
     """The block's accelerator batches proved and verified on the card,
     and linked to segment 0's bound IO. Returns each kernel's launches in
-    the three proves, and the batches' seals by kind."""
+    the three proves."""
     from zeth_tpu_torch import kernels, zkvm
     from zeth_tpu_torch.circuits import rv32im
     from zeth_tpu_torch.zkp import proof as proof_mod
@@ -866,7 +959,9 @@ def accel_phase(dev, card, ex, seg0_seal, fx) -> tuple:
     for kind, args in batches.items():
         mod = zkvm.accelerator_module(kind)
         with path_counters(dev) as got:
-            seal, digest = mod.prove_batch(*args, device=dev)
+            seal, digest = staged_prove(
+                card, f"{kind}-stage",
+                lambda: mod.prove_batch(*args, device=dev))
         for name in launches:
             launches[name] += got["counts"][name]
         pf = proof_mod.decode(seal)
@@ -874,17 +969,12 @@ def accel_phase(dev, card, ex, seg0_seal, fx) -> tuple:
         log(f"{card} | [accel] {kind}: {len(args[0])} calls, po2={pf.po2}, "
             f"{pf.openings['main'].rows.shape[1]} main / "
             f"{pf.openings['control'].rows.shape[1]} control columns, "
-            f"{len(pf.publics)} publics, prove_batch {got['s']:.3f} s, peak "
-            f"device memory {got['peak_gib']:.2f} GiB, seal {seal.shape[0]} "
-            f"words ({seal.shape[0] * 4 / 2**20:.2f} MiB)")
+            f"{len(pf.publics)} publics, prove_batch {got['s']:.3f} s with "
+            f"stage timers, peak device memory {got['peak_gib']:.2f} GiB, "
+            f"seal {seal.shape[0]} words ({seal.shape[0] * 4 / 2**20:.2f} "
+            f"MiB)")
     require_launches(launches, "accel")
     log(f"{card} | [accel] launches of the three proves {launches}")
-    for kind, args in batches.items():
-        mod = zkvm.accelerator_module(kind)
-        staged = staged_prove(card, f"{kind}-stage",
-                              lambda: mod.prove_batch(*args, device=dev))
-        if not np.array_equal(staged[0], out[kind][0]):
-            raise SystemExit(f"the stage-timed {kind} prove gave another seal")
     words = {}
     for kind in batches:
         mod = zkvm.accelerator_module(kind)
@@ -929,7 +1019,7 @@ def accel_phase(dev, card, ex, seg0_seal, fx) -> tuple:
             raise SystemExit(f"small {kind} seal differs from the fixture")
     log("[accel] small keccak, bigint and sha seals equal the fixture "
         "digests")
-    return launches, {kind: out[kind][0] for kind in out}
+    return launches
 
 
 def receipt_guests() -> list:
@@ -1092,11 +1182,12 @@ def timed_recursion(dev, card, rows: list):
         succinct.lift, succinct.join = lift, join
 
 
-def succinct_main(dev, card, seal, pg_seal, ia, iw, accel_seals) -> list:
-    """11a: EVM segment 0's proof and its paging proof lifted and joined,
-    the block's keccak and sha batches lifted, all folded to one root by
-    ``succinct.aggregate_segments``, and the root verified by
-    ``verify_root_segments`` on the card. Returns the per-proof rows."""
+def succinct_main(dev, card, seal, pg_seal, ia, iw) -> list:
+    """11a: EVM segment 0's proof and its paging proof lifted and joined
+    to one root by ``succinct.aggregate_segments``, and the root verified
+    by ``verify_root_segments`` on the card. The block's batches are not
+    lifted (the keccak batch's lift alone is as large as the segment's):
+    11b's receipt lifts one. Returns the per-proof rows."""
     from zeth_tpu_torch import zkvm
     from zeth_tpu_torch.circuits.paging import PagingAir
     from zeth_tpu_torch.circuits.rv32im import Rv32imAir
@@ -1106,30 +1197,25 @@ def succinct_main(dev, card, seal, pg_seal, ia, iw, accel_seals) -> list:
     air, pg_air = Rv32imAir(ia, iw), PagingAir()
     proof, pg_proof = proof_mod.decode(seal), proof_mod.decode(pg_seal)
     extra = zkvm.paging_extras(pg_proof)
-    batches = {k: proof_mod.decode(accel_seals[k]) for k in ("keccak", "sha")}
     rows = []
     t_start = time.time()
     with timed_recursion(dev, card, rows):
         root = succinct.aggregate_segments(
-            air, [proof], pg_air, [pg_proof], [extra],
-            accel=[(zkvm.accelerator_air(k), pf) for k, pf in batches.items()],
-            device=dev)
+            air, [proof], pg_air, [pg_proof], [extra], device=dev)
     prove_s = time.time() - t_start
-    # two segment lifts and their join, two batch lifts, two fold joins
-    if len(rows) != 7:
+    # the segment's lift, its paging proof's and their join
+    if len(rows) != 3:
         raise SystemExit(f"the fold made {len(rows)} recursion proofs, "
-                         "expected 7")
+                         "expected 3")
     root_seal = proof_mod.encode(root.proof)
 
     pubs = [int(p) for p in proof.publics]
     pg_pubs = [int(p) for p in pg_proof.publics]
-    accel = [(zkvm.accelerator_air(k), pf.po2, [int(p) for p in pf.publics])
-             for k, pf in batches.items()]
 
     def verify(rec, x):
         succinct.verify_root_segments(
             rec, air, [proof.po2], [pubs], [x], pg_air, [pg_proof.po2],
-            [pg_pubs], [x[0]], accel=accel, device=dev)
+            [pg_pubs], [x[0]], device=dev)
 
     t0 = time.time()
     verify(succinct.RecReceipt(proof=proof_mod.decode(root_seal),
@@ -1156,21 +1242,21 @@ def succinct_main(dev, card, seal, pg_seal, ia, iw, accel_seals) -> list:
     return rows
 
 
-def streamed_sha_lift(dev, card, resident_seal, sha_seal) -> dict:
-    """11c: the sha batch's lift of 11a proved again with its main group
-    coset-streamed (the recursion AIR's host aux, its program compiled
-    already); the seal must equal 11a's `resident_seal` word for word.
-    Returns its launches, counted around this run alone."""
-    from zeth_tpu_torch import zkvm
+def streamed_paging_lift(dev, card, resident_seal, pg_seal) -> dict:
+    """11c: the paging proof's lift of 11a proved again with its main
+    group coset-streamed (the recursion AIR's host aux, its program
+    compiled already); the seal must equal 11a's `resident_seal` word for
+    word. Returns its launches, counted around this run alone."""
+    from zeth_tpu_torch.circuits.paging import PagingAir
     from zeth_tpu_torch.recursion import succinct
     from zeth_tpu_torch.zkp import proof as proof_mod
     with main_streamed(True), path_counters(dev) as got:
-        streamed = succinct.lift(zkvm.accelerator_air("sha"),
-                                 proof_mod.decode(sha_seal), device=dev)
+        streamed = succinct.lift(PagingAir(), proof_mod.decode(pg_seal),
+                                 device=dev)
     if not np.array_equal(proof_mod.encode(streamed.proof), resident_seal):
-        raise SystemExit("the streamed sha lift's seal differs from the "
+        raise SystemExit("the streamed paging lift's seal differs from the "
                          "resident one")
-    log(f"{card} | [streamed] sha lift (recursion po2="
+    log(f"{card} | [streamed] paging lift (recursion po2="
         f"{streamed.proof.po2}) again with its main group coset-streamed: "
         f"the same seal word for word; {got['s']:.3f} s, {got['launches']} "
         f"leaf launches, peak device memory {got['peak_gib']:.2f} GiB")
@@ -1179,94 +1265,85 @@ def streamed_sha_lift(dev, card, resident_seal, sha_seal) -> dict:
 
 def succinct_receipts(dev, card) -> None:
     """11b: ``LocalProver`` under ZETH_SUCCINCT=1 and ``Receipt.verify``
-    on a two-segment spin guest and on a bigint guest, with the tampers
-    of tools/succinct_e2e.py."""
+    on a bigint guest (one segment pair and the bigint batch lifted and
+    folded), with the tampers of tools/succinct_e2e.py: a forged d0
+    binding, a forged paging public, a flipped root-seal word and a
+    flipped accelerator public."""
     from zeth_tpu_torch import zkvm
     from zeth_tpu_torch.executor import compute_image_id, guests
     from zeth_tpu_torch.hostmath import P
     saved = os.environ.get("ZETH_SUCCINCT")
     os.environ["ZETH_SUCCINCT"] = "1"
     try:
-        a, b, m = 1234567, 7654321, (1 << 31) - 1
-        for name, elf, po2 in (
-                # two segments of po2=14, as tools/succinct_e2e.py's
-                # (cut from three, seven recursion proofs instead of
-                # eleven, to make room for phase 13)
-                ("spin", guests.spin((1 << 14) * 5 // 2), 14),
-                ("bigint_guest(reps=2)",
-                 guests.bigint_guest(a, b, m, reps=2), 20)):
-            env = zkvm.ExecutorEnv.builder().segment_limit_po2(po2).build()
-            t0 = time.time()
+        a, b, m, reps, po2 = 1234567, 7654321, (1 << 31) - 1, 2, 20
+        name = f"bigint_guest(reps={reps})"
+        elf = guests.bigint_guest(a, b, m, reps=reps)
+        env = zkvm.ExecutorEnv.builder().segment_limit_po2(po2).build()
+        t0 = time.time()
+        with timed_recursion(dev, card, []):
             info = zkvm.LocalProver(device=dev).prove(env, elf)
-            torch.cuda.synchronize()
-            prove_s = time.time() - t0
-            receipt, inner = info.receipt, info.receipt.inner
-            image_id = compute_image_id(elf)
-            if inner.kind != "succinct":
-                raise SystemExit(f"{name}: a {inner.kind} receipt")
-            t0 = time.time()
-            receipt.verify(image_id, device=dev)
-            verify_s = time.time() - t0
-            n_seg = len(inner.segment_publics)
-            log(f"{card} | [succinct] receipt {name}: "
-                f"{info.stats.total_cycles} cycles, {n_seg} segment(s) at "
-                f"po2 {inner.segment_po2s}, accelerator claims "
-                f"{[k for k, _, _ in inner.accel_publics]}, prove "
-                f"{prove_s:.3f} s, root seal {inner.root_seal.shape[0]} "
-                f"words, verify {verify_s:.3f} s")
+        torch.cuda.synchronize()
+        prove_s = time.time() - t0
+        receipt, inner = info.receipt, info.receipt.inner
+        image_id = compute_image_id(elf)
+        if inner.kind != "succinct":
+            raise SystemExit(f"{name}: a {inner.kind} receipt")
+        t0 = time.time()
+        receipt.verify(image_id, device=dev)
+        verify_s = time.time() - t0
+        n_seg = len(inner.segment_publics)
+        log(f"{card} | [succinct] receipt {name}: "
+            f"{info.stats.total_cycles} cycles, {n_seg} segment(s) at "
+            f"po2 {inner.segment_po2s}, accelerator claims "
+            f"{[k for k, _, _ in inner.accel_publics]}, prove "
+            f"{prove_s:.3f} s, root seal {inner.root_seal.shape[0]} "
+            f"words, verify {verify_s:.3f} s")
+        if receipt.journal != (a * pow(b, reps, m) % m).to_bytes(
+                48, "little"):
+            raise SystemExit(f"{name}: unexpected journal")
+        if not inner.accel_publics:
+            raise SystemExit(f"{name}: no accelerator claim lifted")
 
-            def reject(what, mutate):
-                keep = mutate()
-                must_reject(f"{name}: {what}",
-                            lambda: receipt.verify(image_id, device=dev))
-                keep()
+        def reject(what, mutate):
+            keep = mutate()
+            must_reject(f"{name}: {what}",
+                        lambda: receipt.verify(image_id, device=dev))
+            keep()
 
-            if name == "spin":
-                if n_seg < 2:
-                    raise SystemExit(f"spin gave {n_seg} segments, "
-                                     "expected at least 2")
+        def d0():
+            x = inner.segment_extras[0]
+            inner.segment_extras[0] = (
+                x[0], (np.asarray(x[1], np.uint64) + np.uint64(1))
+                % np.uint64(P), *x[2:])
+            return lambda: inner.segment_extras.__setitem__(0, x)
 
-                def d0():
-                    x = inner.segment_extras[0]
-                    inner.segment_extras[0] = (
-                        x[0], (np.asarray(x[1], np.uint64) + np.uint64(1))
-                        % np.uint64(P), *x[2:])
-                    return lambda: inner.segment_extras.__setitem__(0, x)
+        def paging():
+            mid = n_seg // 2
+            keep = inner.paging_publics[mid]
+            inner.paging_publics[mid] = list(keep)
+            inner.paging_publics[mid][32] ^= 1
+            return lambda: inner.paging_publics.__setitem__(mid, keep)
 
-                def paging():
-                    mid = n_seg // 2
-                    keep = inner.paging_publics[mid]
-                    inner.paging_publics[mid] = list(keep)
-                    inner.paging_publics[mid][32] ^= 1
-                    return lambda: inner.paging_publics.__setitem__(mid, keep)
+        def root_word():
+            keep = inner.root_seal
+            inner.root_seal = keep.copy()
+            inner.root_seal[keep.shape[0] // 2] ^= 1
+            return lambda: setattr(inner, "root_seal", keep)
 
-                def root_word():
-                    keep = inner.root_seal
-                    inner.root_seal = keep.copy()
-                    inner.root_seal[keep.shape[0] // 2] ^= 1
-                    return lambda: setattr(inner, "root_seal", keep)
+        def accel_pub():
+            keep = inner.accel_publics[0]
+            pubs = list(keep[2])
+            pubs[1] ^= 1
+            inner.accel_publics[0] = (keep[0], keep[1], pubs)
+            return lambda: inner.accel_publics.__setitem__(0, keep)
 
-                reject("a forged d0 binding", d0)
-                reject(f"a forged paging public (limb 32) of segment "
-                       f"{n_seg // 2}", paging)
-                reject("a flipped root-seal word", root_word)
-            else:
-                if receipt.journal != (a * b % m * b % m).to_bytes(
-                        48, "little"):
-                    raise SystemExit(f"{name}: unexpected journal")
-                if not inner.accel_publics:
-                    raise SystemExit(f"{name}: no accelerator claim lifted")
-
-                def accel_pub():
-                    keep = inner.accel_publics[0]
-                    pubs = list(keep[2])
-                    pubs[1] ^= 1
-                    inner.accel_publics[0] = (keep[0], keep[1], pubs)
-                    return lambda: inner.accel_publics.__setitem__(0, keep)
-
-                reject("a flipped accelerator public", accel_pub)
-            # the tampers were undone: the receipt verifies again
-            receipt.verify(image_id, device=dev)
+        reject("a forged d0 binding", d0)
+        reject(f"a forged paging public (limb 32) of segment {n_seg // 2}",
+               paging)
+        reject("a flipped root-seal word", root_word)
+        reject("a flipped accelerator public", accel_pub)
+        # the tampers were undone: the receipt verifies again
+        receipt.verify(image_id, device=dev)
     finally:
         if saved is None:
             os.environ.pop("ZETH_SUCCINCT", None)
@@ -1512,7 +1589,6 @@ def mesh_phase(dev, card, fx, spin, spin_seals) -> dict:
     from zeth_tpu_torch.parallel import multihost
     from zeth_tpu_torch.zkp import prover
     launches = {name: 0 for name in kernels.NAMES}
-    t_phase = time.time()
     seg, ia, iw, entry, claim = spin
     runs = (("a", MESH_FIXTURE_RANKS, fx["spin_iters"], fx["segment_po2"]),
             ("b", MESH_SPIN_RANKS, ((1 << SPIN_PO2) - 4096) * 3 // 2,
@@ -1576,7 +1652,6 @@ def mesh_phase(dev, card, fx, spin, spin_seals) -> dict:
             f"sharded LDE {x['lde_s']:.3f} s + commit {x['commit_s']:.3f} s "
             f"({moved}); unsharded _lde {lde_s:.3f} s + commit_rows "
             f"{commit_s:.3f} s; same root")
-    log(f"{card} | [mesh] phase 13: {time.time() - t_phase:.1f} s")
     del block, lde, tree
     torch.cuda.empty_cache()
     return launches
@@ -1616,11 +1691,22 @@ def run_phases(dev, card, t_start: float, tmp: str, oracle,
                validated) -> None:
     """Phases 3-14 (`oracle` and `validated`: the pending results of
     ``host_aux_oracle`` and ``cli_validate``)."""
-    from zeth_tpu_torch import kernels, ntt, zkvm
+    from zeth_tpu_torch import kernels, ntt
     from zeth_tpu_torch.circuits import rv32im
+    from zeth_tpu_torch.circuits.paging import PagingAir
     from zeth_tpu_torch.hostmath import P
     from zeth_tpu_torch.zkp import proof as proof_mod
-    from zeth_tpu_torch.zkp import prover
+    last = [time.time()]
+
+    def mark(n: int, what: str) -> None:
+        """Each phase's seconds, also on standard error: where a run is
+        stopped at its time limit, the phases that ended are shown."""
+        now = time.time()
+        msg = (f"[phase {n}] {what}: {now - last[0]:.1f} s, "
+               f"{now - t_start:.1f} s from the start")
+        last[0] = now
+        log(msg)
+        print(msg, file=sys.stderr, flush=True)
 
     # 3. kernels against their plain versions, then the int8 field
     # products against the radix-2 and the coset recompute
@@ -1633,6 +1719,7 @@ def run_phases(dev, card, t_start: float, tmp: str, oracle,
     # tables alone hold ~0.8 GiB) would count in every later peak
     ntt._TABLES.clear()
     torch.cuda.empty_cache()
+    mark(3, "kernels")
 
     # 4. the small-po2 oracle
     with open(FIXTURE) as f:
@@ -1655,104 +1742,104 @@ def run_phases(dev, card, t_start: float, tmp: str, oracle,
             f"device memory {got['peak_gib']:.3f} GiB")
         if streamed:
             streamed_runs["spin"] = got["counts"]
+    mark(4, "oracle")
 
     # 5. the spin path: one halting segment (bench.py's guest sizing) at
-    # SPIN_PO2, proved as a user calls it, with no stage timer
-    # synchronising, and verified as bench.py verifies it
+    # SPIN_PO2, proved once, as a user calls it, with the prover's stage
+    # timers on (the breakdown), and verified as bench.py verifies it
     seg, ia, iw, entry, claim = spin_segment(
         ((1 << SPIN_PO2) - 4096) * 3 // 2, SPIN_PO2)
     cycles = int(seg.trace.shape[0])
-    prover.TIMING = False
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_counts()
-    t0 = time.time()
-    seal, pg_seal = rv32im.prove_segment(seg, ia, iw, device=dev)
-    torch.cuda.synchronize()
-    prove_s = time.time() - t0
-    spin_peak = torch.cuda.max_memory_allocated(dev)
-    spin_launches = dict(kernels.LAUNCHES)
+    with path_counters(dev) as got:
+        seal, pg_seal = staged_prove(
+            card, "spin-stage",
+            lambda: rv32im.prove_segment(seg, ia, iw, device=dev))
+    prove_s, spin_launches = got["s"], got["counts"]
     require_launches(spin_launches, "spin", LEAF_ONLY)
     t0 = time.time()
     rv32im.verify_segments([seal], [pg_seal], claim, ia, iw, entry,
                            device=dev)
     verify_s = time.time() - t0
     log(f"{card} | [spin] po2={SPIN_PO2}: {cycles} cycles, prove_segment "
-        f"{prove_s:.3f} s ({cycles / prove_s / 1e6:.4f} Mcycles/s), "
-        f"verify_segments {verify_s:.3f} s (both STARKs and the chain "
-        f"checks), peak device memory {spin_peak / 2**30:.2f} GiB, "
-        f"launches {spin_launches}")
-    # the stage breakdown, at SPIN_PO2 rather than PO2 to keep the script
-    # inside its time limit
-    staged = staged_prove(card, "spin-stage",
-                          lambda: rv32im.prove_segment(seg, ia, iw,
-                                                       device=dev))
-    if not same_seals(staged, (seal, pg_seal)):
-        raise SystemExit("the stage-timed spin prove gave other seals")
+        f"{prove_s:.3f} s with stage timers "
+        f"({cycles / prove_s / 1e6:.4f} Mcycles/s), verify_segments "
+        f"{verify_s:.3f} s (both STARKs and the chain checks), peak device "
+        f"memory {got['peak_gib']:.2f} GiB, launches {spin_launches}")
     # phase 13 proves this segment again over several ranks
     spin, spin_seals = (seg, ia, iw, entry, claim), (seal, pg_seal)
-    del seg, staged
+    del seg
     torch.cuda.empty_cache()
+    mark(5, "spin")
 
     # 6. the EVM segment's front end
     seg, ia, iw, res, ex = evm_segment()
     cycles = int(seg.trace.shape[0])
     del res
+    mark(6, "EVM front end")
 
     # 7. the aux group on the card against the host oracle
     main_trace = check_aux(dev, card, seg, ia, iw, oracle)
+    mark(7, "aux")
 
-    # 8. the EVM path, full width and depth: untimed (the launch counts
-    # and peak memory read around it), then staged, same seals
-    prover.TIMING = False
+    # 8. the EVM path, full width and depth, with the stage timers on:
+    # the launch counts and peak memory read around it
     with path_counters(dev) as got:
-        seals, pg_seals = rv32im.prove_segments([seg], ia, iw, device=dev)
+        seals, pg_seals = staged_prove(
+            card, "evm-stage",
+            lambda: rv32im.prove_segments([seg], ia, iw, device=dev))
     prove_s, peak, launches = got["s"], got["peak_gib"], got["counts"]
+    evm_shapes = got["shapes"]
     require_launches(launches, "EVM", LEAF_ONLY)
-    staged = staged_prove(
-        card, "evm-stage",
-        lambda: rv32im.prove_segments([seg], ia, iw, device=dev))
-    if not (same_seals(staged[0], seals) and same_seals(staged[1], pg_seals)):
-        raise SystemExit("the stage-timed prove gave other seals")
-    del staged, seg
+    del seg
     torch.cuda.empty_cache()
     check_upload(dev, card, rv32im.Rv32imAir(ia, iw), main_trace)
     del main_trace
     pg_s, rv_s = verify_pair(dev, seals[0], pg_seals[0], ia, iw)
     words = seals[0].shape[0] + pg_seals[0].shape[0]
     log(f"{card} | [evm] po2={PO2}: segment 0, {cycles} cycles, "
-        f"prove_segments {prove_s:.3f} s "
+        f"prove_segments {prove_s:.3f} s with stage timers "
         f"({cycles / prove_s / 1e6:.4f} Mcycles/s), verify {pg_s:.3f} s "
         f"paging + {rv_s:.3f} s rv32im, seal {seals[0].shape[0]} + paging "
         f"{pg_seals[0].shape[0]} words ({words * 4 / 1024:.1f} KiB), "
         f"peak device memory {peak:.2f} GiB, launches {launches}")
 
+    # the leaf kernel's share of the segment: each shape the prove
+    # launched it on, timed once on random data
+    evm_leaf_ms = leaf_time_by_shape(dev, card, P, gen, "evm", evm_shapes)
+    mark(8, "EVM")
+
     # 9. the block's accelerator batches, and the resolve of segment 0
-    accel_launches, accel_seals = accel_phase(dev, card, ex, seals[0],
-                                              fixture)
+    accel_launches = accel_phase(dev, card, ex, seals[0], fixture)
     del ex
     torch.cuda.empty_cache()
+    mark(9, "accel")
 
     # 10. receipts through the zkvm API
     receipt_launches = receipt_phase(dev, card)
+    mark(10, "receipt")
 
-    # 11. the recursion: segment 0 and the block's keccak and sha batches
-    # folded to one root proof, then succinct receipts
+    # 11. the recursion: segment 0 and its paging proof folded to one
+    # root proof, then a succinct receipt
     kernels.reset_counts()
-    rec_rows = succinct_main(dev, card, seals[0], pg_seals[0], ia, iw,
-                             accel_seals)
-    sha_name = zkvm.accelerator_air("sha").name
-    sha_lift_seal = proof_mod.encode(next(
-        r["receipt"] for r in rec_rows if r.get("air") == sha_name).proof)
+    rec_rows = succinct_main(dev, card, seals[0], pg_seals[0], ia, iw)
+    pg_lift_seal = proof_mod.encode(next(
+        r["receipt"] for r in rec_rows
+        if r.get("air") == PagingAir().name).proof)
+    pg_seal0 = pg_seals[0]
     del seals, pg_seals, rec_rows
     torch.cuda.empty_cache()
+    mark(11, "succinct (a)")
     succinct_receipts(dev, card)
     succinct_launches = dict(kernels.LAUNCHES)
+    succinct_shapes = dict(kernels.LAUNCH_SHAPES["poseidon2_leaf"])
     require_launches(succinct_launches, "succinct")
+    log(f"{card} | [succinct] leaf launches by (rows, cols): "
+        + ", ".join(f"{k}: {v}" for k, v in sorted(succinct_shapes.items())))
     # the streamed path's second run, counted alone like phase 4's
-    streamed_runs["sha lift"] = streamed_sha_lift(
-        dev, card, sha_lift_seal, accel_seals["sha"])
-    del accel_seals
-    # phase 4's spin segment hashes no digest; the sha lift's claim does
+    streamed_runs["paging lift"] = streamed_paging_lift(
+        dev, card, pg_lift_seal, pg_seal0)
+    del pg_seal0
+    # phase 4's spin segment hashes no digest; the lift's claim does
     for what, counts in streamed_runs.items():
         require_launches(counts, f"streamed {what}",
                          LEAF_ONLY if what == "spin" else None)
@@ -1761,13 +1848,16 @@ def run_phases(dev, card, t_start: float, tmp: str, oracle,
     log(f"{card} | [streamed] launches of the streamed runs "
         f"{streamed_runs}")
     torch.cuda.empty_cache()
+    mark(11, "succinct (b) and (c)")
 
     # 12. the CLI: validate a fixture block, prove block 101 on the card
     cli_launches = cli_phase(dev, card, tmp, validated)
     torch.cuda.empty_cache()
+    mark(12, "cli")
 
     # 13. the multi-device path: several ranks on the one card
     mesh_launches = mesh_phase(dev, card, fx, spin, spin_seals)
+    mark(13, "mesh")
 
     # 14. results
     log(f"[done] {time.time() - t_start:.1f} s")
@@ -1779,6 +1869,11 @@ def run_phases(dev, card, t_start: float, tmp: str, oracle,
                       "streamed": streamed_launches[name],
                       "mesh": mesh_launches[name]}
                for name in kernels.NAMES}
+    results["poseidon2_leaf"]["launches_by_shape"] = {
+        path: [[r, c, n] for (r, c), n in sorted(shapes.items())]
+        for path, shapes in (("evm", evm_shapes),
+                             ("succinct", succinct_shapes))}
+    results["poseidon2_leaf"]["evm_leaf_ms"] = evm_leaf_ms
     print(json.dumps({"kernels": [
         dict(name=name, **KERNELS[name],
              launches=by_path[name][KERNELS[name]["main_path"]],

@@ -6,7 +6,7 @@
 ``evm``: the stateless-client guest validates the smaller fixture block
 (as ``chip_smoke.py`` phase 6 builds and runs it) and segment 0 (po2=20)
 is proved with its paging proof by ``rv32im.prove_segments``. ``spin``:
-``chip_smoke.py``'s halting spin segment at po2=18, by
+``chip_smoke.py``'s halting spin segment (``SPIN_PO2``), by
 ``rv32im.prove_segment``. ``bigint``: the block's bigint batch (every
 bigint call of that execution, po2=15), by ``bigint2.prove_batch``. Each
 prove runs `--repeat` times (the first one in the process also pays the

@@ -11,7 +11,8 @@ Counterpart of ``zeth_tpu.hash.poseidon2``. Two halves:
   ``hash_rows`` (the plain leaf sponge), ``hash_pairs``, and the two
   kernels' wrappers, which send a CUDA matrix to a hand-written kernel
   and a CPU matrix to ``hash_rows``: ``leaf_hash`` (the Merkle leaves,
-  ``kernels/csrc/poseidon2_leaf.cu``, one thread per row) and
+  ``kernels/csrc/poseidon2_leaf.cu``, one thread, 8 lanes or a warp a
+  row as its rule picks) and
   ``sponge_hash`` (``kernels/csrc/poseidon2_sponge.cu``, one warp per
   row), through which ``sponge_row`` hashes one long host row.
 
@@ -318,11 +319,13 @@ def hash_pairs(left, right):
 # ---------------------------------------------------------------------------
 
 
-def _kernel_lib(name: str):
+def _kernel_lib(name: str, lib=None):
     """A Poseidon2 kernel's library, its round constants uploaded. Both
     kernels have one C interface: ``<name>_set_constants(rc_ext, rc_int,
-    diag_m1)`` and ``<name>(in, out, rows, cols, stream)``."""
-    lib = kernels.load(name)
+    diag_m1)`` and ``<name>(in, out, rows, cols, stream)``. `lib`: a
+    library of that interface loaded elsewhere (the turns tool's build of
+    the parent's source), else ``kernels.load(name)``."""
+    lib = kernels.load(name) if lib is None else lib
     if not getattr(lib, "_zeth_ready", False):
         setc, launch = getattr(lib, f"{name}_set_constants"), getattr(lib, name)
         setc.restype = ctypes.c_int
@@ -342,17 +345,24 @@ def _kernel_lib(name: str):
 
 
 def _leaf_lib():
-    return _kernel_lib("poseidon2_leaf")
+    """The leaf kernel's library, its two further entry points typed:
+    ``poseidon2_leaf_lanes(in, out, rows, cols, lanes, stream)`` (the
+    mapping given) and ``poseidon2_leaf_mapping(rows)`` (the one the rule
+    picks)."""
+    lib = _kernel_lib("poseidon2_leaf")
+    if lib.poseidon2_leaf_lanes.argtypes is None:
+        lib.poseidon2_leaf_lanes.restype = ctypes.c_int
+        lib.poseidon2_leaf_lanes.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_void_p]
+        lib.poseidon2_leaf_mapping.restype = ctypes.c_int
+        lib.poseidon2_leaf_mapping.argtypes = [ctypes.c_int64]
+    return lib
 
 
-def leaf_hash(rows):
-    """Merkle leaf digests of an (R, C) int32 Montgomery matrix -> (R, 8).
-
-    A CUDA tensor goes to the hand-written leaf kernel (any R >= 1,
-    C >= 1); a CPU tensor to the plain ``hash_rows``. Bit-identical.
-    """
-    if rows.device.type == "cpu":
-        return hash_rows(rows)
+def _leaf_launch(rows, lanes=None):
+    """The leaf kernel on a CUDA matrix, with the rule's mapping or with
+    `lanes` lanes a row (1, 8 or 32)."""
     if rows.device.type != "cuda":
         raise ValueError(f"leaf_hash: unsupported device {rows.device}")
     if rows.dtype != torch.int32 or rows.dim() != 2:
@@ -367,11 +377,49 @@ def leaf_hash(rows):
     out = torch.empty((r, DIGEST_LEN), dtype=torch.int32, device=rows.device)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = lib.poseidon2_leaf(rows.data_ptr(), out.data_ptr(), r, c, stream)
+        if lanes is None:
+            err = lib.poseidon2_leaf(rows.data_ptr(), out.data_ptr(), r, c,
+                                     stream)
+        else:
+            err = lib.poseidon2_leaf_lanes(rows.data_ptr(), out.data_ptr(),
+                                           r, c, lanes, stream)
     if err:
         raise RuntimeError(f"poseidon2_leaf launch failed: CUDA error {err}")
-    kernels.LAUNCHES["poseidon2_leaf"] += 1
+    kernels.count("poseidon2_leaf", r, c)
     return out
+
+
+def leaf_hash(rows):
+    """Merkle leaf digests of an (R, C) int32 Montgomery matrix -> (R, 8).
+
+    A CUDA tensor goes to the hand-written leaf kernel (any R >= 1,
+    C >= 1), whose rule picks one thread, 8 lanes or a warp a row from R
+    and the card's SM count; a CPU tensor to the plain ``hash_rows``.
+    Bit-identical.
+    """
+    if rows.device.type == "cpu":
+        return hash_rows(rows)
+    return _leaf_launch(rows)
+
+
+def _leaf_hash_lanes(rows, lanes: int):
+    """``leaf_hash`` with the kernel's mapping given: `lanes` lanes a row,
+    1, 8 or 32, whatever the rule would pick (the plain ``hash_rows`` on a
+    CPU tensor). For ``chip_smoke.py`` and ``tools/torch_leaf_turns.py``,
+    which hold every mapping equal to ``hash_rows`` and time it."""
+    if lanes not in (1, 8, 32):
+        raise ValueError(f"leaf_hash: {lanes} lanes a row; 1, 8 or 32")
+    if rows.device.type == "cpu":
+        return hash_rows(rows)
+    return _leaf_launch(rows, lanes)
+
+
+def _leaf_mapping(rows: int, device=None) -> int:
+    """The lanes a row (1, 8 or 32) the leaf kernel's rule takes for a
+    matrix of `rows` rows on the CUDA `device` (None: the current card)."""
+    dev = resolve_device(device)
+    with torch.cuda.device(dev):
+        return _leaf_lib().poseidon2_leaf_mapping(rows)
 
 
 def sponge_hash(rows):
@@ -405,7 +453,7 @@ def sponge_hash(rows):
                                    stream)
     if err:
         raise RuntimeError(f"poseidon2_sponge launch failed: CUDA error {err}")
-    kernels.LAUNCHES["poseidon2_sponge"] += 1
+    kernels.count("poseidon2_sponge", r, c)
     return out
 
 
