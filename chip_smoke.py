@@ -12,7 +12,13 @@ accelerator batches, receipts of small guests through
 block's batches lifted and joined to one root proof, and succinct
 receipts. Phases, each of which exits non-zero on failure:
 
-1. device: the card's name and power limit (nvidia-smi);
+1. device: the card's name and power limit (nvidia-smi); then
+   ``[malloc]``: where a 256 MiB numpy array lands, on the main thread
+   and in one worker thread (glibc's ``mallinfo2().hblkhd``, the bytes
+   in mmapped blocks, read around it), with the glibc version and the
+   peak host RSS. The port's import keeps blocks under 1 GiB off mmap
+   (``zeth_tpu_torch/__init__.py``) and this script sets nothing, so a
+   main-thread block that was mmapped fails the run;
 2. build: every CUDA kernel of the path from the sources in the checkout
    (one nvcc per source, all started together);
 3. kernels: each kernel against its plain PyTorch version on the card,
@@ -114,6 +120,9 @@ receipts. Phases, each of which exits non-zero on failure:
    ``{"ok": true, ...}`` line.
 
 Each phase prints its seconds (``[phase N]``), on standard error too.
+The lines of each path's seconds also give the process's peak host RSS
+so far (``ru_maxrss``); a mesh rank's line gives its process's, and the
+parent's peak that the spawned rank started from.
 
 The script needs a CUDA card: without one it exits non-zero before any
 result. It imports no jax and nothing of the JAX package (``zeth_tpu``).
@@ -137,10 +146,12 @@ import io
 import json
 import multiprocessing
 import os
+import resource
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -264,6 +275,62 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def host_rss_gib() -> float:
+    """This process's peak resident set so far (Linux gives KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def mmapped_mib(nbytes: int, in_thread: bool = False) -> float:
+    """MiB that glibc mmapped for one numpy array of `nbytes`, made on
+    this thread or on a new one: ``mallinfo2().hblkhd``, the bytes in
+    mmapped blocks, read around it."""
+    import ctypes
+    libc = ctypes.CDLL("libc.so.6")
+    # mallinfo2 (glibc 2.33) has size_t fields; mallinfo's int fields
+    # still hold these sizes
+    info = getattr(libc, "mallinfo2", None) or libc.mallinfo
+    field = ctypes.c_size_t if hasattr(libc, "mallinfo2") else ctypes.c_int
+
+    class Mallinfo(ctypes.Structure):
+        _fields_ = [(f, field) for f in (
+            "arena", "ordblks", "smblks", "hblks", "hblkhd", "usmblks",
+            "fsmblks", "uordblks", "fordblks", "keepcost")]
+    info.restype = Mallinfo
+    out = []
+
+    def measure() -> None:
+        before = info().hblkhd
+        a = np.empty(nbytes, np.uint8)
+        out.append((info().hblkhd - before) / 2**20)
+        del a
+
+    if in_thread:
+        t = threading.Thread(target=measure)
+        t.start()
+        t.join()
+    else:
+        measure()
+    return out[0]
+
+
+def malloc_check() -> None:
+    """``[malloc]``: where one 256 MiB numpy array lands, made on the main
+    thread and in one worker thread. Fails if the main-thread block was
+    mmapped: the port's import did not take. A thread's arena mmaps any
+    block over its 64 MiB heap whatever the threshold, so the worker's
+    figure is reported, not checked."""
+    version = os.confstr("CS_GNU_LIBC_VERSION")
+    main_mib = mmapped_mib(256 << 20)
+    worker_mib = mmapped_mib(256 << 20, in_thread=True)
+    log(f"[malloc] {version}: a 256 MiB numpy array mmapped "
+        f"{main_mib:.3f} MiB on the main thread, {worker_mib:.3f} MiB in a "
+        f"worker thread; peak host RSS {host_rss_gib():.3f} GiB")
+    if main_mib > 0:
+        raise SystemExit(f"malloc: {version} mmapped a 256 MiB block made "
+                         "on the main thread; the port's M_MMAP_THRESHOLD "
+                         "did not take")
 
 
 def sha(words) -> str:
@@ -906,6 +973,7 @@ def path_counters(dev):
     got["shapes"] = dict(kernels.LAUNCH_SHAPES["poseidon2_leaf"])
     got["launches"] = got["counts"]["poseidon2_leaf"]
     got["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    got["rss_gib"] = host_rss_gib()
 
 
 def fixture_batches(fx) -> dict:
@@ -971,6 +1039,7 @@ def accel_phase(dev, card, ex, seg0_seal, fx) -> dict:
             f"{pf.openings['control'].rows.shape[1]} control columns, "
             f"{len(pf.publics)} publics, prove_batch {got['s']:.3f} s with "
             f"stage timers, peak device memory {got['peak_gib']:.2f} GiB, "
+            f"peak host RSS {got['rss_gib']:.2f} GiB, "
             f"seal {seal.shape[0]} words ({seal.shape[0] * 4 / 2**20:.2f} "
             f"MiB)")
     require_launches(launches, "accel")
@@ -1080,7 +1149,8 @@ def receipt_phase(dev, card) -> dict:
             raise SystemExit(f"{name}: a tampered receipt verified")
         log(f"{card} | [receipt] {name}: {info.stats.total_cycles} cycles, "
             f"{info.stats.segments} segment(s), prove {prove_s:.3f} s, "
-            f"verify {verify_s:.3f} s; tampered {tamper} rejected: {why}")
+            f"verify {verify_s:.3f} s, peak host RSS {host_rss_gib():.2f} "
+            f"GiB; tampered {tamper} rejected: {why}")
     launches = dict(kernels.LAUNCHES)
     require_launches(launches, "receipt")
     return launches
@@ -1121,7 +1191,7 @@ def recursion_proof(dev, card, kind, what, prove) -> tuple:
            "sponge_launches": kernels.LAUNCHES["poseidon2_sponge"]
            - before["poseidon2_sponge"],
            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-           "prior_peak_gib": prior / 2**30}
+           "prior_peak_gib": prior / 2**30, "rss_gib": host_rss_gib()}
     log(f"{card} | [succinct] {kind} {what}: {row['rows']} program rows, "
         f"recursion po2={row['po2']}; compile {row['compile_s']:.3f} s, "
         f"interpreter {row['witgen_s']:.3f} s, control trace "
@@ -1129,7 +1199,8 @@ def recursion_proof(dev, card, kind, what, prove) -> tuple:
         f"{row['prove_s']:.3f} s (the last three inside it), all "
         f"{total:.3f} s; {row['launches']} leaf and "
         f"{row['sponge_launches']} sponge launches, peak device "
-        f"memory {row['peak_gib']:.2f} GiB")
+        f"memory {row['peak_gib']:.2f} GiB, peak host RSS "
+        f"{row['rss_gib']:.2f} GiB")
     return rec, row
 
 
@@ -1259,7 +1330,8 @@ def streamed_paging_lift(dev, card, resident_seal, pg_seal) -> dict:
     log(f"{card} | [streamed] paging lift (recursion po2="
         f"{streamed.proof.po2}) again with its main group coset-streamed: "
         f"the same seal word for word; {got['s']:.3f} s, {got['launches']} "
-        f"leaf launches, peak device memory {got['peak_gib']:.2f} GiB")
+        f"leaf launches, peak device memory {got['peak_gib']:.2f} GiB, "
+        f"peak host RSS {got['rss_gib']:.2f} GiB")
     return got["counts"]
 
 
@@ -1491,7 +1563,7 @@ def cli_phase(dev, card, tmp: str, validated) -> dict:
         f"{st.user_cycles} user + {st.paging_cycles} paging cycles, "
         f"{st.keccak_calls} keccak calls, batches (po2) {batches}; "
         f"{launches['poseidon2_leaf']} leaf launches, peak device memory "
-        f"{peak / 2**30:.2f} GiB")
+        f"{peak / 2**30:.2f} GiB, peak host RSS {host_rss_gib():.2f} GiB")
     image_id = BlockProcessor.for_chain_id(1).image_id()
     for what, attr in (("segment seal", "seals"),
                        ("keccak seal", "keccak_seal")):
@@ -1527,6 +1599,9 @@ def mesh_rank(mesh, spin_iters: int, segment_po2: int,
     from zeth_tpu_torch.parallel import comm
     from zeth_tpu_torch.zkp import prover
     dev = resolve_device(None, mesh)
+    # a spawned process starts from its parent's peak (Linux keeps it
+    # across exec): the rank's own peak shows only where it passes this
+    rss_start = host_rss_gib()
     seg, ia, iw, _, _ = spin_segment(spin_iters, segment_po2)
     kernels.load("poseidon2_leaf")
     comm.reset_stats()
@@ -1541,6 +1616,7 @@ def mesh_rank(mesh, spin_iters: int, segment_po2: int,
            "s": time.time() - t0, "seals": (seals[0], pg_seals[0]),
            "counts": dict(kernels.LAUNCHES),
            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "rss_gib": host_rss_gib(), "rss_start_gib": rss_start,
            "comm": dict(comm.STATS),
            "transport": comm.transport(mesh, dev)}
     if compare_lde:
@@ -1570,7 +1646,9 @@ def mesh_lines(card, tag: str, ranks: list) -> None:
                            for op, (c, b, t) in sorted(r["comm"].items()))
         log(f"{card} | [mesh] {tag} rank {r['rank']} on {r['device']}: "
             f"prove_segments {r['s']:.3f} s, {r['counts']['poseidon2_leaf']} "
-            f"leaf launches, peak device memory {r['peak_gib']:.2f} GiB; "
+            f"leaf launches, peak device memory {r['peak_gib']:.2f} GiB, "
+            f"peak host RSS {r['rss_gib']:.2f} GiB (inherited "
+            f"{r['rss_start_gib']:.2f} GiB at its start); "
             f"collectives ({r['transport']}): {comm_s}")
 
 
@@ -1669,6 +1747,7 @@ def main() -> None:
     card = card_line()
     log(f"[device] {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    malloc_check()
 
     # 2. build
     t0 = time.time()
@@ -1739,7 +1818,8 @@ def run_phases(dev, card, t_start: float, tmp: str, oracle,
             f"main group {how}: seal and paging seal equal the fixture "
             f"digests; "
             f"{got['s']:.3f} s, {got['launches']} leaf launches, peak "
-            f"device memory {got['peak_gib']:.3f} GiB")
+            f"device memory {got['peak_gib']:.3f} GiB, peak host RSS "
+            f"{got['rss_gib']:.3f} GiB")
         if streamed:
             streamed_runs["spin"] = got["counts"]
     mark(4, "oracle")
@@ -1764,7 +1844,8 @@ def run_phases(dev, card, t_start: float, tmp: str, oracle,
         f"{prove_s:.3f} s with stage timers "
         f"({cycles / prove_s / 1e6:.4f} Mcycles/s), verify_segments "
         f"{verify_s:.3f} s (both STARKs and the chain checks), peak device "
-        f"memory {got['peak_gib']:.2f} GiB, launches {spin_launches}")
+        f"memory {got['peak_gib']:.2f} GiB, peak host RSS "
+        f"{got['rss_gib']:.2f} GiB, launches {spin_launches}")
     # phase 13 proves this segment again over several ranks
     spin, spin_seals = (seg, ia, iw, entry, claim), (seal, pg_seal)
     del seg
@@ -1788,6 +1869,7 @@ def run_phases(dev, card, t_start: float, tmp: str, oracle,
             card, "evm-stage",
             lambda: rv32im.prove_segments([seg], ia, iw, device=dev))
     prove_s, peak, launches = got["s"], got["peak_gib"], got["counts"]
+    evm_rss = got["rss_gib"]
     evm_shapes = got["shapes"]
     require_launches(launches, "EVM", LEAF_ONLY)
     del seg
@@ -1801,7 +1883,8 @@ def run_phases(dev, card, t_start: float, tmp: str, oracle,
         f"({cycles / prove_s / 1e6:.4f} Mcycles/s), verify {pg_s:.3f} s "
         f"paging + {rv_s:.3f} s rv32im, seal {seals[0].shape[0]} + paging "
         f"{pg_seals[0].shape[0]} words ({words * 4 / 1024:.1f} KiB), "
-        f"peak device memory {peak:.2f} GiB, launches {launches}")
+        f"peak device memory {peak:.2f} GiB, peak host RSS {evm_rss:.2f} "
+        f"GiB, launches {launches}")
 
     # the leaf kernel's share of the segment: each shape the prove
     # launched it on, timed once on random data

@@ -576,19 +576,36 @@ def test_toy_lift_join_root_equal_reference_live():
 
 
 
-@pytest.mark.skipif(not E2E, reason="slow e2e (set ZETH_E2E=1)")
-def test_succinct_receipt_equals_reference_live(monkeypatch):
-    from zeth_tpu import zkvm as JZ
+def _echo16_succinct_inner(monkeypatch):
+    """The port's succinct receipt of echo_input(16) on the CPU, verified;
+    returns (its inner receipt, the guest ELF)."""
     from zeth_tpu_torch import zkvm as TZ
     from zeth_tpu_torch.executor import compute_image_id
     monkeypatch.setenv("ZETH_SUCCINCT", "1")
     elf = guests.echo_input(16)
     env = TZ.ExecutorEnv.builder().write_slice(bytes(range(16))).build()
     info = TZ.LocalProver(device="cpu").prove(env, elf)
-    inner = info.receipt.inner
-    assert inner.kind == "succinct"
+    assert info.receipt.inner.kind == "succinct"
     info.receipt.verify(compute_image_id(elf), device="cpu")
+    return info.receipt.inner, elf
+
+
+@pytest.mark.skipif(not E2E, reason="slow e2e (set ZETH_E2E=1)")
+def test_succinct_receipt_equals_reference_live(monkeypatch):
+    from zeth_tpu import zkvm as JZ
+    inner, elf = _echo16_succinct_inner(monkeypatch)
     jenv = JZ.ExecutorEnv.builder().write_slice(bytes(range(16))).build()
     jinfo = JZ.LocalProver().prove(jenv, elf)
     np.testing.assert_array_equal(inner.root_seal,
                                   jinfo.receipt.inner.root_seal)
+
+
+@pytest.mark.skipif(not E2E, reason="slow e2e (set ZETH_E2E=1; the port's "
+                    "recursion proofs take ~35 min on 8 CPU cores)")
+def test_succinct_receipt_equals_fixture(monkeypatch):
+    """The port's root seal against the `succinct_echo16` digest, which
+    the live check above found equal to the JAX package's: the next check
+    needs no JAX run."""
+    fx = _fixture("succinct_echo16")
+    seal = _echo16_succinct_inner(monkeypatch)[0].root_seal
+    assert (seal.shape[0], _sha(seal)) == (fx["words"], fx["sha256"])

@@ -13,17 +13,20 @@ prove runs `--repeat` times (the first one in the process also pays the
 kernels' build and the card's warm-up) with ``prover.TIMING`` on. Prints
 the card, and for each prove its seconds, the peak device memory, every
 stage with its seconds, the peak so far at the end of each stage that
-synchronises the card (``prover.STAGE_PEAKS``), and the first of those
-that reached the peak. ``--tree`` imports ``zeth_tpu_torch`` from another
+synchronises the card (``prover.STAGE_PEAKS``), the first of those
+that reached the peak, and the process's peak host RSS so far
+(``ru_maxrss``). ``--tree`` imports ``zeth_tpu_torch`` from another
 checkout (for example an unpacked parent commit), so two versions of the
-package can be measured in one call on one card; the fixture block and
-this script's helpers come from this checkout. Needs a CUDA card.
+package can be measured in one call on one card; ``chip_smoke``'s
+helpers and the fixture block come from ``--tree`` too where it holds
+them. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import resource
 import sys
 import time
 
@@ -88,11 +91,13 @@ def main() -> None:
         for name, so_far in prover.STAGE_PEAKS:
             print(f"{tag} peak so far at the end of '{name.strip()}': "
                   f"{so_far / 2**30:.2f} GiB", flush=True)
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss   # KiB
         setter = next((name for name, b in prover.STAGE_PEAKS if b == peak),
                       "none")
         print(f"{tag} prove {total:.3f} s with the stage timers, peak "
               f"device memory {peak / 2**30:.2f} GiB, set in the stage "
-              f"'{setter.strip()}'", flush=True)
+              f"'{setter.strip()}', peak host RSS {rss / 2**20:.3f} GiB",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -38,3 +38,28 @@ device, and raise where there is no card (``convert.resolve_device``).
 """
 
 __version__ = "0.1.0"
+
+
+# glibc hands every numpy buffer over 128 KiB to its own mmap/munmap, and
+# its dynamic threshold climbs no higher than 32 MiB, so each large witgen
+# or aux buffer pays page faults anew; the reference measured its host
+# stages 10-50x slower than their arithmetic that way. Keep blocks under
+# 1 GiB on the heap's free list, and trim its top only past 256 MiB, so
+# repeated prove calls reuse warm pages. The options are per process and
+# reach the main arena: a worker thread's arena still mmaps any block over
+# its 64 MiB heap.
+def _tune_malloc():
+    import ctypes
+    import sys
+    if not sys.platform.startswith("linux"):
+        return
+    try:
+        libc = ctypes.CDLL("libc.so.6", use_errno=True)
+        libc.mallopt(-3, 1 << 30)    # M_MMAP_THRESHOLD
+        libc.mallopt(-1, 1 << 28)    # M_TRIM_THRESHOLD
+    except Exception:
+        pass
+
+
+_tune_malloc()
+del _tune_malloc
