@@ -1,0 +1,1 @@
+"""Frozen copies; see the package docstring."""
